@@ -31,7 +31,7 @@ def main():
     assert mismatches == 0, f"{mismatches}/{n_queries} queries disagreed"
     print(f"OK: top-{k} matches brute force on all {n_queries} queries")
 
-    # Timing: batched MXU scan vs per-pair dot loop ("naive").
+    # Timing: one batched scan vs a per-pair dot loop ("naive").
     it.batch_knn_dot(queries[0], vb, k)  # warmup/compile
     t0 = time.perf_counter()
     for q in queries:

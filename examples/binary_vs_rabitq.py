@@ -1,7 +1,7 @@
 """Rank fidelity of binary quantization: Spearman correlation between
 binary-Hamming ranking and exact f32 cosine ranking
 (reference examples/binary_vs_rabitq.rs — the qualitative comparison;
-the RaBitQ crate itself has no TPU port, so this measures our encoder
+the RaBitQ crate itself has no JAX port, so this measures our encoder
 against the exact ranking the way that example does).
 
 Run: python examples/binary_vs_rabitq.py

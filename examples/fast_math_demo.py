@@ -24,8 +24,8 @@ def main():
     assert np.max(np.abs(fast - exact) / exact) < 5e-3, "~0.5% contract (1 NR)"
     assert np.max(np.abs(precise - exact) / exact) < 1e-5, "2-NR contract"
 
-    # Fused approximate cosine vs exact (on TPU they nearly coincide:
-    # rsqrt is a native VPU op).
+    # Fused approximate cosine vs exact (on an accelerator they nearly coincide:
+    # rsqrt is a native vector op).
     rng = np.random.default_rng(2)
     a = rng.standard_normal(768).astype(np.float32)
     b = rng.standard_normal(768).astype(np.float32)
@@ -35,7 +35,7 @@ def main():
 
     # HNSW cost model from the reference example: distance evals per query
     # ~ ef * log(n); rsqrt shaving matters at ~1e5+ evals/query on CPU.
-    # On TPU the evals batch into one fused scan instead.
+    # On an accelerator the evals batch into one fused scan instead.
     print("OK")
 
 

@@ -1,11 +1,12 @@
-"""Tile-skip pruned scan: exact kNN that reads only competitive HBM tiles.
+"""Tile-skip pruned scan: exact kNN that reads only competitive tiles.
 
 The reference's pruning scans (``src/batch.rs:320-365`` threshold early
 exit, ``:439-558`` adaptive warmup extrapolation) trade exactness for
-skipped work per *row*. The TPU redesign skips work per *HBM tile* and
+skipped work per *row*. This redesign skips work per *corpus tile* and
 keeps exactness: per-tile centroid/radius bounds prove whole tiles
-loser-only, and the scan's dynamic-length pipeline never issues their
-DMAs. This demo shows the full serving flow:
+loser-only, and on the GPU the Triton scan never reads them (other routes
+scan every tile and return the same result). This demo shows the full
+serving flow:
 
 1. ``cluster_order`` — the IVF-style layout pass that makes tiles
    coherent (pruning needs locality, like any pruning index);
@@ -14,7 +15,8 @@ DMAs. This demo shows the full serving flow:
 3. ``batch_knn_adaptive`` riding the same scan (the reference's
    "approximate" API, now exact on large corpora);
 4. ``batch_l2_squared_pruning`` — the threshold scan with tile skip;
-5. the survivor statistics that show how much HBM the plan avoided.
+5. the survivor statistics that show how much of the corpus the plan
+   avoids reading.
 """
 
 import time
@@ -25,7 +27,6 @@ import jax.numpy as jnp
 
 import innr_tpu as it
 from innr_tpu import prune
-from innr_tpu.kernels.pruned_knn import pruned_tile_n
 
 
 def main():
@@ -39,7 +40,7 @@ def main():
         np.float32
     )
 
-    # 1. Layout pass: order rows by nearest centroid so HBM tiles are
+    # 1. Layout pass: order rows by nearest centroid so corpus tiles are
     #    coherent. One device-side mini-k-means + one permutation.
     t0 = time.perf_counter()
     perm = prune.cluster_order(rows, n_clusters=n_centers, n_iters=4)
@@ -63,7 +64,7 @@ def main():
     frac = int(n_surv) / s.n_tiles
     print(
         f"layout pass: {t_layout:.2f}s; survivor tiles "
-        f"{int(n_surv)}/{s.n_tiles} ({frac:.0%} of HBM read, exact results)"
+        f"{int(n_surv)}/{s.n_tiles} ({frac:.0%} of the corpus read, exact results)"
     )
     assert frac < 0.9, "clustered+ordered corpus must prune"
 
@@ -75,7 +76,7 @@ def main():
     brute = qs.astype(np.float64) @ rows_ordered.astype(np.float64).T
     for i in range(16):
         want = np.argsort(-brute[i].astype(np.float32), kind="stable")[:10]
-        # Clustered corpora produce near-equal scores where the MXU's
+        # Clustered corpora produce near-equal scores where the scan's
         # f32 accumulation and a float64 oracle can disagree by 1 ulp on
         # ORDER; the candidate set and scores must still agree.
         assert set(pruned.indices[i].tolist()) == set(want.tolist()), i

@@ -34,6 +34,9 @@ EXAMPLES = [
 
 
 def main():
+    from innr_tpu import compile_cache
+
+    compile_cache.enable()
     here = pathlib.Path(__file__).parent
     failures = []
     for name in EXAMPLES:

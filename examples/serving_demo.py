@@ -23,7 +23,7 @@ def main():
     qs = rng.standard_normal((64, d)).astype(np.float32)
     brute = rows.astype(np.float64) @ qs.T  # (n, 64)
 
-    # 1. Batched MIPS: 64 queries, ONE fused launch, one corpus read.
+    # 1. Batched MIPS: 64 queries, one scan, one corpus read.
     vb = it.VerticalBatch.from_rows(rows)
     t0 = time.perf_counter()
     res = it.batch_knn_dot(qs, vb, 10)

@@ -1,4 +1,4 @@
-"""Distributed kNN over a device mesh — the TPU-native scaling path the
+"""Distributed kNN over a device mesh — the multi-device scaling path the
 single-core reference cannot express (survey §2.4 mandate).
 
 Covers the full sharded family: f32 dot/L2/cosine, packed binary, packed
@@ -49,7 +49,7 @@ def main():
     assert list(cidx[:, 0]) == [0, 1, 2, 3], "each query finds its source row"
     print(f"cosine top-3 (4 queries): {cidx.tolist()}")
 
-    # packed binary: 32x less HBM + ICI traffic for the same corpus.
+    # packed binary: 32x less device memory and interconnect traffic for the same corpus.
     packed = ShardedPackedBinary.encode(rows, 0.0, mesh=mesh)
     counts, pidx = packed.knn(it.encode_binary(rows[7], 0.0), 3)
     assert int(np.asarray(pidx)[0]) == 7

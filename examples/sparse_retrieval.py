@@ -2,7 +2,7 @@
 parity with dense scoring, plus the sharded form.
 
 The reference's sparse API is pairwise (src/sparse.rs: merge-join dot,
-sparse_maxsim); this example exercises its TPU corpus-scale batch form:
+sparse_maxsim); this example exercises its corpus-scale batch form:
 documents as sorted (indices, values) pairs over a hashed 30K-term space,
 queries retrieved via `sparse_knn` / `sparse_knn_batch`, verified against
 an exact dense-scatter oracle, then distributed with ShardedSparseCorpus.

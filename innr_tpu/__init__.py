@@ -1,18 +1,22 @@
-"""innr_tpu — TPU-native vector-similarity kernel library (JAX/XLA/Pallas).
+"""innr_tpu — vector-similarity kernel library for accelerators (JAX/XLA/Pallas).
 
-A from-scratch TPU rebuild of the capabilities of ``arclabs561/innr``
+A from-scratch JAX rebuild of the capabilities of ``arclabs561/innr``
 (reference ``src/lib.rs``): dense f32/f64 similarity reductions, a columnar
 batch-kNN engine, binary (1-bit) / ternary (1.58-bit) / scalar (uint8)
 quantization with asymmetric scoring, ColBERT MaxSim late interaction,
 sparse dot products, integer-slot Hamming / MinHash estimators, a top-K
-tracker, and a pluggable distance protocol — redesigned for TPU:
+tracker, and a pluggable distance protocol — redesigned for an accelerator
+(an NVIDIA GPU; see README.md):
 
-- batch scores run on the MXU (matmuls), not per-pair dispatch;
-- the hot scans are fused Pallas kernels (streaming score+top-k, packed
-  XOR+popcount) — the analog of the reference's hand-written SIMD layer;
-- corpora larger than one chip shard across an ICI mesh with a distributed
-  top-k merge (:mod:`innr_tpu.parallel`);
-- f64 reductions use double-f32 arithmetic (TPUs have no f64 ALUs).
+- batch scores run as matmuls, not per-pair dispatch;
+- each scan family has one route (:mod:`innr_tpu.route`): plain XLA, or a
+  hand-written Pallas kernel compiled through Triton where one beat XLA
+  on the card (the dense score + top-k scan) — the analog of the
+  reference's hand-written SIMD layer;
+- corpora larger than one device shard across a device mesh with a
+  distributed top-k merge (:mod:`innr_tpu.parallel`);
+- f64 reductions can use double-f32 arithmetic (f64 runs at a fraction of
+  the f32 rate on accelerators).
 
 Contracts (reference ``src/lib.rs:34-46``): dispatching functions raise
 :class:`~innr_tpu.utils.asserts.ContractError` on length mismatch (the

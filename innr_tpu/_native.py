@@ -1,7 +1,7 @@
 """ctypes loader for the native host runtime (native/innr_host.c).
 
 The native library accelerates the *host* side of the framework — the
-data-loader encoders and the streaming TopK merge — while the TPU owns
+data-loader encoders and the streaming TopK merge — while the device owns
 scoring. Loading is best-effort: if the shared library is missing and a C
 compiler is available it is built once into the package tree; otherwise
 every caller falls back to pure Python/NumPy with identical semantics.

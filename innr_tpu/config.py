@@ -2,9 +2,9 @@
 
 The reference crate has three config mechanisms (cargo features, runtime CPU
 detection, build-time target-cpu flags; see reference ``src/lib.rs:20-33``).
-The TPU analog is a single process-wide knob that forces the pure-``jnp``
-reference path (our "portable" layer) instead of MXU / Pallas kernels, plus
-shape thresholds that decide when a Pallas kernel is worth launching.
+Here it is a single process-wide knob that keeps every scan on the plain
+XLA route (our "portable" layer) instead of a hand-written kernel; which
+route a scan takes otherwise is decided in :mod:`innr_tpu.route`.
 
 Env var ``INNR_TPU_FORCE_REFERENCE=1`` forces the reference path at import
 time; ``force_reference(True/False)`` toggles it at runtime.
@@ -17,18 +17,12 @@ import os
 # When True every dispatching op routes to the jnp reference implementation.
 _FORCE_REFERENCE: bool = os.environ.get("INNR_TPU_FORCE_REFERENCE", "0") == "1"
 
-# Minimum corpus rows for a Pallas fused kernel to be worth launching over a
-# plain XLA matmul + top_k. Below this, kernel launch overhead dominates.
-# (Analog of the reference's MIN_DIM_SIMD length thresholds,
-# reference src/lib.rs:163-167.)
-MIN_ROWS_PALLAS: int = 2048
-
 # Threshold for treating an L2 norm as "effectively zero"
 # (reference src/lib.rs:175).
 NORM_EPSILON: float = 1e-9
 
 # Relative slack applied to the tile-pruning dead-tile comparisons
-# (innr_tpu/prune.py). The survivor planner's bounds and the scan kernel's
+# (innr_tpu/prune.py). The survivor planner's bounds and the scan's
 # scores are both f32 but use different expansions (triangle bounds vs the
 # norms^2 - 2 q.r decomposition), so each carries up to ~d * eps_f32 * scale
 # of rounding error (d=128: ~1.5e-5 relative). A tile is only declared dead
@@ -36,46 +30,19 @@ NORM_EPSILON: float = 1e-9
 # times a magnitude scale, so f32 rounding can never prune a true neighbor
 # — keeping prune=True exact, not just "exact up to rounding". 1e-4 covers
 # the d<=4096 error bound with >6x margin; the perf cost is nil (dead tiles
-# are typically far below threshold).
+# are typically far below threshold). It assumes f32 arithmetic on both
+# sides: the planner's bound matmuls run at Precision.HIGHEST, since TF32
+# (~1e-3 relative) would exceed it.
 PRUNE_BOUND_EPS: float = 1e-4
-# Squared-space version used by fused cosine kernels
-# (reference src/lib.rs:181).
+# Squared-space version of NORM_EPSILON (reference src/lib.rs:181).
 NORM_EPSILON_SQ: float = NORM_EPSILON * NORM_EPSILON
 
-# Minimum fraction of corpus tiles the survivor plan must elide for the
-# pruned (dynamic-pipeline) scan to engage; below it the router runs the
-# plain full fused scan instead (innr_tpu/kernels/pruned_knn.py::routed_raw,
-# one device-side lax.cond — no host sync). The measured envelope showed
-# the dynamic pipeline costs ~7-14% over the static full scan when nothing
-# prunes (PERF_PRUNE_ENVELOPE.md "gaussian"/"sigma=2.0" rows); routing to
-# the full kernel whenever the predicted win is below that overhead makes
-# prune=True never-worse instead of usually-better. Results are exact and
-# bit-identical on BOTH routes, so this is purely a perf knob.
-_PRUNE_ROUTE_MIN_ELIDE: float = 0.10
-
-
-def set_prune_route_min_elide(fraction: float) -> None:
-    """Set the routing threshold (0 disables routing: always prune; 1.0
-    effectively forces the full scan). Takes effect on the next trace —
-    already-jitted (shape, k) combinations keep the threshold they were
-    traced with (call ``jax.clear_caches()`` to force a retrace)."""
-    global _PRUNE_ROUTE_MIN_ELIDE
-    f = float(fraction)
-    if not 0.0 <= f <= 1.0:
-        raise ValueError("prune route threshold must be in [0, 1]")
-    _PRUNE_ROUTE_MIN_ELIDE = f
-
-
-def prune_route_min_elide() -> float:
-    """Current routing threshold (fraction of tiles that must be elided)."""
-    return _PRUNE_ROUTE_MIN_ELIDE
-
-
-# Precision for f32 score matmuls. TPU MXUs multiply f32 as bf16 passes by
-# default (~1e-4 relative error); "highest" uses enough passes for full f32
-# accuracy. The headline scans are HBM-bound matvecs where extra MXU passes
-# are free, so full precision is the default — relax to "default" for large
-# multi-query batches where the MXU becomes the bottleneck.
+# Precision for f32 score matmuls. "highest" is full f32 arithmetic; on a
+# GPU that runs outside the tensor cores. "default" lets XLA use TF32
+# (~1e-3 relative error) on the tensor cores. Exact f32 scores are the
+# library's contract (ties and near-ties resolve as the reference does), so
+# "highest" is the default; bf16 and u8 corpora do not use this knob (see
+# innr_tpu/scan.py).
 _MATMUL_PRECISION: str = os.environ.get("INNR_TPU_MATMUL_PRECISION", "highest")
 
 

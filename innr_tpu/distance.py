@@ -1,12 +1,12 @@
 """Pluggable distance metrics (smaller = closer).
 
-TPU port of reference ``src/distance.rs``: a minimal metric protocol plus
+Port of reference ``src/distance.rs``: a minimal metric protocol plus
 stateless metric objects mirroring the ``anndists`` / ``hnsw_rs`` trait
 shape, so innr_tpu's metrics can back a generic index. Each metric's
 ``eval(a, b)`` returns a float32 distance; ``eval_batch(q, rows)`` is the
-TPU-native vectorized form over an (N, D) corpus (absent in the reference —
-its indexes call ``eval`` per pair; on TPU per-pair calls are the anti-
-pattern).
+vectorized form over an (N, D) corpus (absent in the reference — its
+indexes call ``eval`` per pair; on an accelerator per-pair calls are the
+anti-pattern).
 """
 
 from __future__ import annotations

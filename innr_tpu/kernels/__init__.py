@@ -1,25 +1,14 @@
-"""Pallas TPU kernels — innr_tpu's native layer.
+"""Hand-written kernels — innr_tpu's native layer.
 
 The reference's native layer is ~3,000 lines of hand-written AVX-512 / NEON
-intrinsics (``src/arch/``). The TPU analog is this package: Mosaic/Pallas
-kernels for the ops where fusion or streaming semantics beat what XLA emits
-from the jnp layer:
+intrinsics (``src/arch/``). Here a kernel exists only where it beat the
+plain XLA route on the card at the shapes users run (``PERF.md``):
 
-- :mod:`innr_tpu.kernels.knn` — fused score + streaming top-k over corpus
-  tiles (replaces score materialization + sort).
-- :mod:`innr_tpu.kernels.hamming` — XOR + popcount batch Hamming over packed
-  words.
-- :mod:`innr_tpu.kernels.ternary` — sign-agreement popcount batch dot.
+- :mod:`innr_tpu.kernels.triton_knn` — fused score + top-k dense corpus
+  scan in Pallas through Triton, with an optional survivor tile list for
+  the tile-skipping scan.
 
-Every kernel has a jnp reference implementation as fallback and oracle; on
-non-TPU backends kernels run in interpreter mode so the differential tests
-execute everywhere (the analog of the reference testing AVX-512 under Intel
-SDE emulation, ``.github/workflows/ci.yml:94-115``).
+:func:`innr_tpu.route.route` decides when it runs. Every kernel has the
+XLA route as its reference; tests run kernels in Pallas interpret mode,
+passing ``interpret=True`` themselves.
 """
-
-import jax
-
-
-def should_interpret() -> bool:
-    """Run Pallas in interpreter mode off-TPU (CPU tests, SDE analog)."""
-    return jax.default_backend() != "tpu"

@@ -1,8 +1,8 @@
 """Binary (1-bit) quantization: encode, Hamming, dot, Jaccard.
 
-TPU redesign of reference ``src/binary.rs``. Semantics are identical; the
+Redesign of reference ``src/binary.rs``. Semantics are identical; the
 packed *layout* is uint32 words (bit ``i % 32`` of word ``i // 32``) instead
-of the reference's u64 words, because 32-bit integers are TPU-native.
+of the reference's u64 words, because JAX's default integers are 32-bit.
 Compression is the same 32x vs f32; ``data_u64()`` round-trips the
 reference's serialization format.
 
@@ -13,12 +13,14 @@ SIMD byte path in ``quant::hamming_distance``.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from innr_tpu.utils.asserts import ContractError
-from innr_tpu.utils.padding import materialize_words
+from innr_tpu.utils.order import top_k_keys
 
 __all__ = [
     "PackedBinary",
@@ -80,7 +82,7 @@ class PackedBinary:
         return cls(jnp.zeros((_num_words(dimension),), dtype=jnp.uint32), dimension)
 
     def data(self) -> jax.Array:
-        """Raw packed uint32 words (TPU-native layout)."""
+        """Raw packed uint32 words (device layout)."""
         return self.words
 
     def data_u64(self) -> np.ndarray:
@@ -162,7 +164,7 @@ def encode_binary(values, threshold: float = 0.0) -> PackedBinary:
 
 def encode_binary_batch(rows, threshold: float = 0.0) -> jax.Array:
     """Encode an (N, D) corpus into (N, ceil(D/32)) uint32 words — the
-    TPU-native batch encoder (one fused pass, jit-able)."""
+    Batch encoder (one fused pass, jit-able)."""
     rows = jnp.asarray(rows, dtype=jnp.float32)
     return _pack_bits(rows > jnp.float32(threshold))
 
@@ -210,12 +212,10 @@ def binary_jaccard(a: PackedBinary, b: PackedBinary) -> jax.Array:
 
 
 class PackedBinaryBatch:
-    """A packed binary corpus: (N, W) uint32 words plus a cached word-major
-    transpose (W, N) — the layout the fused Hamming-kNN kernel streams
-    (lane = corpus vector; the TPU rebirth of the reference's PDX columnar
-    layout, ``src/batch.rs:1-59``, for bit-packed scans)."""
+    """A packed binary corpus: (N, W) uint32 words, padding bits of the
+    last word masked."""
 
-    __slots__ = ("words", "words_t", "_dimension")
+    __slots__ = ("words", "_dimension")
 
     def __init__(self, words, dimension: int):
         words = jnp.asarray(words, dtype=jnp.uint32)
@@ -225,7 +225,6 @@ class PackedBinaryBatch:
                 f"dimension {dimension}"
             )
         self.words = _mask_padding(words, dimension)
-        self.words_t = materialize_words(self.words.T)
         self._dimension = int(dimension)
 
     @classmethod
@@ -249,9 +248,8 @@ def binary_knn(query: PackedBinary, corpus: PackedBinaryBatch, k: int):
     """Top-k nearest by bit-Hamming over a packed corpus — the coarse stage
     of the binary retrieval pipeline (reference examples/binary_demo.rs).
 
-    Returns ``(counts ascending, indices)`` numpy arrays. Large corpora run
-    the fused Pallas streaming scan (one HBM pass over 1 bit/dim codes, no
-    count materialization); small ones use the jnp path.
+    Returns ``(counts ascending, indices)`` numpy arrays: one XOR +
+    popcount reduction over the 1 bit/dim codes, then ``top_k``.
     """
     if query.dimension != corpus.dimension:
         raise ContractError(
@@ -262,28 +260,27 @@ def binary_knn(query: PackedBinary, corpus: PackedBinaryBatch, k: int):
     if n == 0 or k == 0:
         return np.zeros((0,), np.uint32), np.zeros((0,), np.int64)
     k = min(int(k), n)
-    from innr_tpu import config
+    counts, idx = _hamming_top_k(query.words[None, :], corpus.words, k)
+    return np.asarray(counts[0]), np.asarray(idx[0], dtype=np.int64)
 
-    if n >= config.MIN_ROWS_PALLAS and k <= _packed_k_cap(1) and not config.reference_forced():
-        from innr_tpu.kernels import packed_knn as _kern
 
-        counts, idx = _kern.fused_binary_knn(query.words, corpus.words_t, k)
-    else:
-        all_counts = jnp.sum(
-            jax.lax.population_count(corpus.words ^ query.words[None, :]).astype(
-                jnp.int32
-            ),
-            axis=1,
-        )
-        neg = -all_counts
-        _, idx = jax.lax.top_k(neg, k)
-        counts = all_counts[idx].astype(jnp.uint32)
-    return np.asarray(counts), np.asarray(idx, dtype=np.int64)
+@functools.partial(jax.jit, static_argnames=("k",))
+def _hamming_top_k(q_words, words, k: int):
+    """(Q, W) query words x (N, W) corpus words -> the k smallest Hamming
+    counts per query and their rows. One jitted program, so XLA fuses the
+    XOR, popcount and row sum into one reduction over the corpus."""
+    counts = jnp.sum(
+        jax.lax.population_count(words[None, :, :] ^ q_words[:, None, :]
+                                 ).astype(jnp.int32),
+        axis=2,
+    )
+    neg, idx = top_k_keys(-counts, k)
+    return (-neg).astype(jnp.uint32), idx
 
 
 def binary_knn_batch(queries, corpus: PackedBinaryBatch, k: int):
-    """Multi-query binary kNN: one fused launch for a (Q, W) packed query
-    batch (TPU-native serving form; all queries share one corpus read).
+    """Multi-query binary kNN for a (Q, W) packed query batch (the
+    serving form; all queries share one corpus read).
 
     ``queries``: (Q, W) uint32 words, a list of :class:`PackedBinary`, or a
     :class:`PackedBinaryBatch`. Returns ``(counts (Q, k), indices (Q, k))``.
@@ -304,21 +301,7 @@ def binary_knn_batch(queries, corpus: PackedBinaryBatch, k: int):
         n_q = int(q_words.shape[0])
         return np.zeros((n_q, 0), np.uint32), np.zeros((n_q, 0), np.int64)
     k = min(int(k), n)
-    from innr_tpu import config
-
-    if n >= config.MIN_ROWS_PALLAS and k <= _packed_k_cap(int(q_words.shape[0])) and not config.reference_forced():
-        from innr_tpu.kernels import packed_knn as _kern
-
-        counts, idx = _kern.fused_binary_knn_batch(q_words, corpus.words_t, k)
-    else:
-        all_counts = jnp.sum(
-            jax.lax.population_count(
-                corpus.words[None, :, :] ^ q_words[:, None, :]
-            ).astype(jnp.int32),
-            axis=2,
-        )
-        _, idx = jax.lax.top_k(-all_counts, k)
-        counts = jnp.take_along_axis(all_counts, idx, axis=1).astype(jnp.uint32)
+    counts, idx = _hamming_top_k(q_words, corpus.words, k)
     return np.asarray(counts), np.asarray(idx, dtype=np.int64)
 
 
@@ -326,8 +309,8 @@ def batch_binary_hamming(query, corpus) -> jax.Array:
     """Hamming of one packed query against a packed corpus.
 
     ``query``: (W,) uint32 words or :class:`PackedBinary`; ``corpus``:
-    (N, W) uint32. Returns (N,) uint32. For large corpora this dispatches to
-    the Pallas XOR+popcount kernel (:mod:`innr_tpu.kernels.hamming`).
+    (N, W) uint32. Returns (N,) uint32: one fused XOR + popcount + row
+    sum.
     """
     if isinstance(query, PackedBinary):
         query = query.words
@@ -338,21 +321,5 @@ def batch_binary_hamming(query, corpus) -> jax.Array:
             f"innr_tpu::batch_binary_hamming: word-count mismatch "
             f"({corpus.shape[-1]} vs {query.shape[-1]})"
         )
-    from innr_tpu import config
-
-    if corpus.shape[0] >= config.MIN_ROWS_PALLAS and not config.reference_forced():
-        from innr_tpu.kernels import hamming as _kern
-
-        return _kern.batch_hamming_words(query, corpus)
     pc = jax.lax.population_count(corpus ^ query[None, :]).astype(jnp.int32)
     return jnp.sum(pc, axis=1).astype(jnp.uint32)
-
-
-def _packed_k_cap(n_q: int) -> int:
-    """Largest k the fused packed kernel supports in one pass for an
-    n_q-query batch (the VMEM running-best budget; kernels/knn.py).
-    Beyond it the jnp fallback runs — packed corpora are coarse stages
-    whose k is a rerank budget, so this cap is far past practical use."""
-    from innr_tpu.kernels.knn import single_pass_k
-
-    return single_pass_k(n_q)

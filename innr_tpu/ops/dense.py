@@ -1,10 +1,10 @@
 """Dense f32 vector primitives: dot, cosine, norms, L1/L2, matryoshka.
 
-TPU-native redesign of reference ``src/dense.rs``. The reference dispatches
-each call to AVX-512/AVX2/NEON intrinsics by length; on TPU a single pair is
-a degenerate tile and XLA fuses the whole reduction into one VPU pass, so the
+Redesign of reference ``src/dense.rs``. The reference dispatches
+each call to AVX-512/AVX2/NEON intrinsics by length; on an accelerator a
+single pair is a degenerate tile and XLA fuses the whole reduction into one elementwise pass, so the
 "kernel" here is the jnp expression itself. The real acceleration surface is
-the batch layer (``innr_tpu.batch``) where these ops become MXU matmuls.
+the batch layer (``innr_tpu.batch``) where these ops become matmuls.
 
 Contracts (reference ``src/lib.rs:34-46``):
 

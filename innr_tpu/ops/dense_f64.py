@@ -1,14 +1,14 @@
 """f64 vector primitives via double-float ("df64") arithmetic.
 
-TPU redesign of reference ``src/dense_f64.rs``. TPU hardware has no f64
-ALUs: XLA emulates f64 at a large slowdown, and jnp only carries 64-bit
-types when ``jax_enable_x64`` is on. The TPU-native answer is **double-f32
+Redesign of reference ``src/dense_f64.rs``. Accelerators run f64 at a
+fraction of the f32 rate (or emulate it), and jnp only carries 64-bit types
+when ``jax_enable_x64`` is on. The answer here is **double-f32
 arithmetic**: each f64 value is carried as an (hi, lo) pair of f32s with
 error-free transformations (Dekker two-prod with 2^12+1 splitting, Knuth
 two-sum) giving ~2^-48 relative accuracy — comfortably inside the 1e-9
 relative bound the reference's differential fuzz target enforces for f64
 reductions (``fuzz/fuzz_targets/l2_l1_diff.rs``). Every op is a fully
-vectorized VPU pass plus a log2(n)-step halving reduction tree, not a
+vectorized pass plus a log2(n)-step halving reduction tree, not a
 scalar loop.
 
 ``impl`` selects the path per call:
@@ -46,7 +46,7 @@ _SPLITTER = np.float32(4097.0)  # 2^12 + 1 (Dekker splitting for f32)
 
 
 # ---------------------------------------------------------------------------
-# df64 arithmetic core (error-free transformations, all f32 VPU ops)
+# df64 arithmetic core (error-free transformations, all f32 elementwise ops)
 # ---------------------------------------------------------------------------
 
 def _two_sum(a, b):

@@ -1,9 +1,9 @@
 """Fast approximate math: rsqrt and fused approximate cosine.
 
-TPU-native take on reference ``src/fast_math.rs``. The reference exists
+Take on reference ``src/fast_math.rs``. The reference exists
 because x86/ARM ``sqrt``+``div`` cost 40-60 cycles and hardware ``rsqrt``
-estimates + Newton-Raphson cost ~10-15. On TPU the VPU evaluates ``rsqrt``
-natively, so the exact and fast paths nearly coincide; we keep the API for
+estimates + Newton-Raphson cost ~10-15. On an accelerator ``rsqrt`` is a
+native instruction, so the exact and fast paths nearly coincide; we keep the API for
 parity and implement the classic Quake-III bit-hack faithfully (magic
 ``0x5f375a86``, reference ``src/fast_math.rs:48-76``) so its documented
 accuracy contract (~0.5% relative error, one NR iteration) still holds and
@@ -11,7 +11,7 @@ remains differential-testable.
 
 ``fast_cosine`` keeps the reference's fused one-pass structure and zero-norm
 guard (reference ``src/fast_math.rs:97-127``) but uses the hardware ``rsqrt``
-— the TPU analog of the SSE ``_mm_rsqrt_ps``+NR kernels
+— the analog of the SSE ``_mm_rsqrt_ps``+NR kernels
 (``src/fast_math.rs:147-331``).
 """
 
@@ -68,8 +68,8 @@ def fast_cosine(a, b) -> jax.Array:
     (reference ``src/fast_math.rs:97``).
 
     One pass computes ``dot(a,b)``, ``||a||^2``, ``||b||^2``; the result is
-    ``ab * rsqrt(aa) * rsqrt(bb)`` guarded by the squared-norm epsilon. On
-    TPU the VPU's native ``rsqrt`` replaces the SSE/NEON estimate+NR chain.
+    ``ab * rsqrt(aa) * rsqrt(bb)`` guarded by the squared-norm epsilon. The
+    native ``rsqrt`` replaces the SSE/NEON estimate+NR chain.
     Raises on length mismatch regardless of size
     (reference ``src/fast_math.rs:497-503``).
     """
@@ -90,6 +90,6 @@ def fast_cosine_dispatch(a, b) -> jax.Array:
     (reference ``src/fast_math.rs:494``).
 
     The reference exposes the dispatcher separately because its SIMD paths
-    have per-ISA thresholds; on TPU there is exactly one path.
+    have per-ISA thresholds; here there is exactly one path.
     """
     return fast_cosine(a, b)

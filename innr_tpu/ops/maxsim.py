@@ -1,11 +1,11 @@
 """ColBERT MaxSim late interaction.
 
-TPU redesign of reference ``src/maxsim.rs``. The reference runs an
+Redesign of reference ``src/maxsim.rs``. The reference runs an
 O(|Q| x |D|) doubly nested dot loop with per-ISA kernels
 (``src/arch/x86_64.rs:119-143``); the survey's own optimization note
-("block into matrix-vector form") *is* the TPU design: the whole stack
-collapses to one MXU matmul ``Q @ D^T`` followed by a row-max and a sum —
-two VPU reductions fused onto the matmul output.
+("block into matrix-vector form") *is* the design here: the whole stack
+collapses to one matmul ``Q @ D^T`` followed by a row-max and a sum —
+two reductions fused onto the matmul output.
 
 Contracts (reference ``src/maxsim.rs:96-110``): empty query or doc -> 0.0;
 all tokens must share one dimension (raises); NOT commutative — the first
@@ -84,7 +84,7 @@ def maxsim(query_tokens, doc_tokens) -> jax.Array:
     (reference ``src/maxsim.rs:96``).
 
     Inputs: (Tq, D) and (Td, D) arrays, or lists of equal-length vectors.
-    One MXU matmul + row-max + sum. Returns 0.0 if either side is empty.
+    One matmul + row-max + sum. Returns 0.0 if either side is empty.
     """
     q = _tokens_2d(query_tokens, "query")
     d = _tokens_2d(doc_tokens, "doc")
@@ -140,7 +140,7 @@ def batch_maxsim(queries: jax.Array, docs: jax.Array, doc_mask=None, query_mask=
     best = jnp.max(pair, axis=3)  # (Q, N, Tq)
     if doc_mask is not None:
         # A fully-masked doc leaves -inf bests; clamp those to 0.0 (the
-        # empty-doc -> 0.0 contract, same as the fused kernel). Genuine
+        # empty-doc -> 0.0 contract). Genuine
         # NaN/+inf scores still propagate.
         best = jnp.where(best == -jnp.inf, 0.0, best)
     if query_mask is not None:
@@ -153,10 +153,9 @@ def maxsim_knn(query_tokens, doc_corpus, k: int, doc_mask=None):
     """Top-k documents by MaxSim over an (N, Td, D) multi-vector corpus —
     ColBERT-style late-interaction *retrieval*, not just pairwise scoring.
 
-    Streams the corpus through the fused Pallas MaxSim scorer (never
-    materializing the (N, Tq, Td) interaction tensor) above the dispatch
-    threshold; small corpora use the batched einsum. ``doc_mask`` (N, Td)
-    excludes padded doc tokens exactly. Returns
+    Scores the corpus with the batched einsum of :func:`batch_maxsim`
+    (XLA fuses the max and the sum into the contraction's consumer).
+    ``doc_mask`` (N, Td) excludes padded doc tokens exactly. Returns
     ``(scores descending, indices)`` numpy arrays.
     """
     q = _tokens_2d(query_tokens, "query")
@@ -170,23 +169,17 @@ def maxsim_knn(query_tokens, doc_corpus, k: int, doc_mask=None):
     if n == 0 or k == 0 or q.shape[0] == 0:
         return np.zeros((0,), np.float32), np.zeros((0,), np.int64)
     k = min(int(k), n)
-    from innr_tpu import config
     from innr_tpu.utils.order import top_k_total
 
-    if n >= max(config.MIN_ROWS_PALLAS // 16, 64) and not config.reference_forced():
-        from innr_tpu.kernels import maxsim_kernel as _kern
-
-        vals, idx = _kern.fused_maxsim_knn(q, docs, k, doc_mask)
-    else:
-        scores = batch_maxsim(q[None], docs, doc_mask=doc_mask)[0]
-        vals, idx = top_k_total(scores, k, largest=True)
+    scores = batch_maxsim(q[None], docs, doc_mask=doc_mask)[0]
+    vals, idx = top_k_total(scores, k, largest=True)
     return np.asarray(vals), np.asarray(idx, dtype=np.int64)
 
 
 def maxsim_knn_batch(query_batch, doc_corpus, k: int, doc_mask=None):
     """Top-k documents by MaxSim for a (B, Tq, D) query batch — all B
-    queries share ONE streamed pass over the (N, Td, D) corpus (the
-    multi-query serving shape; one launch, one corpus HBM read).
+    queries share one einsum over the (N, Td, D) corpus (the multi-query
+    serving shape).
 
     Ragged queries zero-pad to the Tq rectangle exactly: a zero query
     token's best interaction is 0, contributing nothing to the sum.
@@ -203,14 +196,8 @@ def maxsim_knn_batch(query_batch, doc_corpus, k: int, doc_mask=None):
     if n == 0 or k == 0 or qs.shape[1] == 0 or b == 0:
         return np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64)
     k = min(int(k), n)
-    from innr_tpu import config
     from innr_tpu.utils.order import top_k_total
 
-    if n >= max(config.MIN_ROWS_PALLAS // 16, 64) and not config.reference_forced():
-        from innr_tpu.kernels import maxsim_kernel as _kern
-
-        vals, idx = _kern.fused_maxsim_knn_batch(qs, docs, k, doc_mask)
-    else:
-        scores = batch_maxsim(qs, docs, doc_mask=doc_mask)
-        vals, idx = top_k_total(scores, k, largest=True)
+    scores = batch_maxsim(qs, docs, doc_mask=doc_mask)
+    vals, idx = top_k_total(scores, k, largest=True)
     return np.asarray(vals), np.asarray(idx, dtype=np.int64)

@@ -1,10 +1,10 @@
 """Integer primitives: u8 dot product and byte-packed bit Hamming.
 
-TPU redesign of reference ``src/quant.rs``. The reference widens u8 lanes
+Redesign of reference ``src/quant.rs``. The reference widens u8 lanes
 through SIMD multiply-accumulate chains (``dot_u8_avx512``,
 ``src/arch/x86_64.rs:1102``) and popcounts XORed bytes through VPOPCNTDQ /
-VPSHUFB lookup tables (``:1160-1271``). On TPU the widening multiply is an
-int32 VPU op (or an int8 MXU matmul in the batch layer) and popcount is the
+VPSHUFB lookup tables (``:1160-1271``). Here the widening multiply is an
+int32 elementwise op (or an int8 matmul in the batch layer) and popcount is the
 native ``lax.population_count`` — no lookup tables needed.
 
 Contracts: dispatching functions raise on length mismatch; empty inputs
@@ -59,8 +59,8 @@ def batch_hamming(query, corpus) -> jax.Array:
     """Bit Hamming of one byte-packed query against a packed corpus.
 
     ``query``: (W,) uint8; ``corpus``: (N, W) uint8. Returns (N,) uint32.
-    TPU-native batch form of the reference's per-pair scan; dispatches to
-    the Pallas XOR+popcount kernel for large corpora.
+    batch form of the reference's per-pair scan (XOR, popcount and the
+    row sum fuse into one reduction under jit).
     """
     query = jnp.asarray(query, dtype=jnp.uint8)
     corpus = jnp.asarray(corpus, dtype=jnp.uint8)
@@ -72,7 +72,7 @@ def batch_hamming(query, corpus) -> jax.Array:
 def batch_dot_u8(query, corpus) -> jax.Array:
     """u8 dot of one query against an (N, D) u8 corpus -> (N,) uint32.
 
-    Widens on-chip after the 1-byte/element HBM read (the 4x-bandwidth win
+    Widens on the device after the 1-byte/element read (the 4x-bandwidth win
     the reference gets from keeping codes in u8).
     """
     query = jnp.asarray(query, dtype=jnp.uint8)
@@ -86,16 +86,16 @@ def batch_dot_u8(query, corpus) -> jax.Array:
 
 
 def batch_dot_u8_s8(query, corpus) -> jax.Array:
-    """u8 dot via the zero-point-shifted s8xs8 MXU decomposition — exact.
+    """u8 dot via the zero-point-shifted s8xs8 matmul decomposition — exact.
 
-    The MXU multiplies int8 natively; u8 values don't fit int8, so shift
+    Tensor cores multiply int8 natively; u8 values don't fit int8, so shift
     both sides by the zero point 128 (``s = u - 128`` is a bijection
     u8 <-> s8) and correct:
 
         dot(a, b) = dot(as, bs) + 128*sum(as) + 128*sum(bs) + 128^2 * D
 
     All terms are exact int32 (|dot(as,bs)| <= 128^2 * D). The survey §2.4
-    "int8 MXU for u8 paths" experiment (reference dot_u8_avx512,
+    "int8 matmul for u8 paths" experiment (reference dot_u8_avx512,
     src/arch/x86_64.rs:1102); `scripts/bench_int8.py` A/Bs this against
     the int32-widen path on hardware — results in PERF.md.
     """

@@ -1,4 +1,4 @@
-"""Pure-NumPy reference implementations — the TPU build's "portable layer".
+"""Pure-NumPy reference implementations — the build's "portable layer".
 
 The reference crate pairs every SIMD kernel with a portable scalar fallback
 that doubles as the differential-test oracle (reference

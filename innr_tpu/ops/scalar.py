@@ -1,6 +1,6 @@
 """Scalar (uint8) quantization with asymmetric f32-query scoring.
 
-TPU redesign of reference ``src/scalar.rs``. The quantization scheme and
+Redesign of reference ``src/scalar.rs``. The quantization scheme and
 the asymmetric decomposition are carried over exactly
 (``src/scalar.rs:8-29``):
 
@@ -9,7 +9,7 @@ the asymmetric decomposition are carried over exactly
 
 ``sum(q)`` is query-only and precomputed once (:class:`QueryContext`). The
 batch path keeps codes as u8 in HBM (the 4x bandwidth win) and widens
-on-chip into one MXU matmul — the analog of the VPMOVZXBD widen + FMA loop
+on-chip into one matmul — the analog of the VPMOVZXBD widen + FMA loop
 (``src/arch/x86_64.rs:928``).
 """
 
@@ -21,8 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from innr_tpu import scan
 from innr_tpu.utils.asserts import ContractError
-from innr_tpu.utils.order import top_k_total
 
 __all__ = [
     "QuantizationParams",
@@ -125,7 +125,7 @@ class QuantizedU8:
 
 
 class QuantizedU8Batch:
-    """An (N, D) corpus of u8 codes — the TPU-native container for
+    """An (N, D) corpus of u8 codes — the device container for
     :func:`batch_knn_u8` (codes stay u8 in HBM; one array, not N objects)."""
 
     __slots__ = ("codes",)
@@ -234,10 +234,11 @@ def batch_knn_u8(
 ) -> list[tuple[int, float]]:
     """Quantized first-pass kNN (reference ``src/scalar.rs:370``).
 
-    ``corpus`` is a :class:`QuantizedU8Batch` (TPU-native) or a sequence of
+    ``corpus`` is a :class:`QuantizedU8Batch` (device-native) or a sequence of
     :class:`QuantizedU8` (reference-shaped; stacked once). Scores every
-    vector with the asymmetric decomposition — one u8->f32 MXU matvec plus
-    the precomputed affine correction — and returns the top-k
+    vector with the asymmetric decomposition — one matvec over the u8
+    codes (:func:`innr_tpu.scan.dots`) plus the precomputed affine
+    correction — and returns the top-k
     ``(index, score)`` pairs, highest similarity first.
     """
     if isinstance(corpus, QuantizedU8Batch):
@@ -255,59 +256,33 @@ def batch_knn_u8(
             f"batch_knn_u8: dimension mismatch ({q.shape[-1]} vs {codes.shape[1]})"
         )
     k = min(int(k), int(codes.shape[0]))
-    from innr_tpu import config
-
-    if int(codes.shape[0]) >= config.MIN_ROWS_PALLAS and not config.reference_forced():
-        # Fused Pallas scan: codes stream as u8 (1 byte/dim HBM traffic),
-        # widen on-chip; the affine correction is a per-query monotone map
-        # (alpha > 0 by construction), applied after selection.
-        from innr_tpu.kernels import knn as _kern
-
-        mixed, idx = _kern.fused_knn_u8_batch(q[None, :], codes, k)
-        vals = (
-            jnp.float32(params.alpha / 255.0) * mixed[0]
-            + jnp.float32(params.offset) * jnp.sum(q)
-        )
-        idx = idx[0]
-    else:
-        vals, idx = _batch_knn_u8_jit(
-            q, codes, jnp.float32(params.alpha), jnp.float32(params.offset), k
-        )
+    vals, idx = _u8_knn(q[None, :], codes, params, k)
+    vals, idx = jax.device_get((vals[0], idx[0]))
     return [(int(i), float(v)) for i, v in zip(np.asarray(idx), np.asarray(vals))]
 
 
-from functools import partial as _partial  # noqa: E402
 
 
-@_partial(jax.jit, static_argnames=("k",))
-def _batch_knn_u8_jit(q, codes, alpha, offset, k):
-    from innr_tpu import config
-    mixed = jnp.matmul(
-        codes.astype(jnp.float32), q,
-        preferred_element_type=jnp.float32,
-        precision=config.matmul_precision(),
-    )
-    scores = (alpha / 255.0) * mixed + offset * jnp.sum(q)
-    return top_k_total(scores, k, largest=True)
+def _u8_knn(qs, codes, params, k: int):
+    """Top-k of the affine-corrected scores of (Q, D) f32 queries against
+    u8 ``codes``. Selection runs on the raw mixed dots: the correction
+    ``(alpha/255) * mixed + offset * sum(q)`` is a per-query monotone map
+    (alpha > 0 by construction), applied after selection."""
+    mixed, idx = scan.knn(qs, codes, None, k, "dot")
+    return _affine(mixed, qs, jnp.float32(params.alpha),
+                   jnp.float32(params.offset)), idx
 
 
-@_partial(jax.jit, static_argnames=("k",))
-def _batch_knn_u8_multi_jit(qs, codes, alpha, offset, k):
-    from innr_tpu import config
-    mixed = jnp.matmul(
-        qs, codes.astype(jnp.float32).T,
-        preferred_element_type=jnp.float32,
-        precision=config.matmul_precision(),
-    )
-    scores = (alpha / 255.0) * mixed + offset * jnp.sum(qs, axis=1, keepdims=True)
-    return top_k_total(scores, k, largest=True)
+@jax.jit
+def _affine(mixed, qs, alpha, offset):
+    return (alpha / 255.0) * mixed + offset * jnp.sum(qs, axis=1, keepdims=True)
 
 
 def batch_knn_u8_multi(queries, corpus: QuantizedU8Batch, params: QuantizationParams, k: int):
     """Multi-query quantized kNN: (Q, D) f32 queries against a u8 corpus in
-    ONE fused launch (all queries share the 1-byte/dim corpus read).
+    one scan (all queries share the 1-byte/dim corpus read).
 
-    The TPU-native serving form of :func:`batch_knn_u8`. Returns
+    The serving form of :func:`batch_knn_u8`. Returns
     ``(scores (Q, k) descending, indices (Q, k))`` jax arrays; scores carry
     the full affine correction.
     """
@@ -322,17 +297,4 @@ def batch_knn_u8_multi(queries, corpus: QuantizedU8Batch, params: QuantizationPa
         n_q = int(qs.shape[0])
         return (jnp.zeros((n_q, 0), jnp.float32), jnp.zeros((n_q, 0), jnp.int32))
     k = min(int(k), n)
-    from innr_tpu import config
-
-    if n >= config.MIN_ROWS_PALLAS and not config.reference_forced():
-        from innr_tpu.kernels import knn as _kern
-
-        mixed, idx = _kern.fused_knn_u8_batch(qs, corpus.codes, k)
-        vals = (
-            jnp.float32(params.alpha / 255.0) * mixed
-            + jnp.float32(params.offset) * jnp.sum(qs, axis=1, keepdims=True)
-        )
-        return vals, idx
-    return _batch_knn_u8_multi_jit(
-        qs, corpus.codes, jnp.float32(params.alpha), jnp.float32(params.offset), k
-    )
+    return _u8_knn(qs, corpus.codes, params, k)

@@ -1,9 +1,9 @@
 """Integer-slot Hamming distance and MinHash Jaccard estimation.
 
-TPU redesign of reference ``src/slot.rs``. Slot comparisons are lane-wise
-integer compare + count — exactly what the VPU's 8x128 lanes do natively, so
-the "kernel" is a fused compare-reduce. The u64 width needs care: TPU jnp
-runs without 64-bit types by default, so u64 slots are compared as (hi, lo)
+Redesign of reference ``src/slot.rs``. Slot comparisons are lane-wise
+integer compare + count — exactly what vector lanes do natively, so
+the "kernel" is a fused compare-reduce. The u64 width needs care: jnp runs
+without 64-bit types by default, so u64 slots are compared as (hi, lo)
 uint32 pairs — two slots are equal iff both halves are equal. Results are
 exact integers (differential tests use equality, not tolerance, matching
 ``fuzz/fuzz_targets/slot_diff.rs``).
@@ -17,6 +17,7 @@ the minimum length (reference ``src/slot.rs:266``, ``:299``).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import jax
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from innr_tpu.utils.asserts import ContractError
+from innr_tpu.utils.order import top_k_keys
 
 __all__ = [
     "SketchCorpus",
@@ -91,7 +93,7 @@ def slot_hamming_u64(a, b) -> jax.Array:
     """Differing-slot count over u64 slots (reference ``src/slot.rs:209``).
 
     Accepts numpy uint64 input; compared on-device as uint32 (hi, lo)
-    halves, since TPU-native integers are 32-bit.
+    halves, since JAX's default integers are 32-bit.
     """
     a32 = _u64_to_u32_pairs(a)
     b32 = _u64_to_u32_pairs(b)
@@ -171,20 +173,18 @@ def jaccard_distance(a, b) -> jax.Array:
 
 
 class SketchCorpus:
-    """An (N, S) sketch corpus with a cached slot-major transpose.
+    """An (N, S) sketch corpus held on the device.
 
     The container form of a MinHash / slot-sketch collection (analog of
-    ``PackedBinaryBatch`` for word planes): the fused streaming slot-kNN
-    kernel consumes the corpus **slot-major** — ``(S, N)`` with one corpus
-    sketch per VPU lane — and caching the transpose here means a scan costs
-    exactly one corpus HBM read, never a layout copy per call. Raw-data
-    accessor preserved (``sketches``) per the reference's serialization
-    contract (``src/slot.rs`` containers expose their slots).
+    ``PackedBinaryBatch`` for word planes): the slot scans compare and
+    count over its rows in one fused XLA reduction, one corpus read per
+    scan. Raw-data accessor preserved (``sketches``) per the reference's
+    serialization contract (``src/slot.rs`` containers expose their
+    slots).
 
     Slots are uint32 by default; uint16 sketches (the b-bit MinHash b=16
-    width of reference ``src/slot.rs:158``) store at half the HBM bytes
-    and scan at twice the lanes — pass a uint16 array or
-    ``dtype=jnp.uint16``.
+    width of reference ``src/slot.rs:158``) store at half the device
+    bytes — pass a uint16 array or ``dtype=jnp.uint16``.
     """
 
     def __init__(self, sketches, dtype=None):
@@ -203,7 +203,6 @@ class SketchCorpus:
         if sketches.ndim != 2:
             raise ContractError("SketchCorpus: sketches must be 2-D (N, S)")
         self.sketches = sketches
-        self.slots_t = sketches.T  # (S, N), the fused kernel's layout
 
     @property
     def num_sketches(self) -> int:
@@ -218,9 +217,7 @@ class SketchCorpus:
         return self.sketches.dtype
 
     def memory_bytes(self) -> int:
-        # Both the row-major sketches and the cached slot-major transpose
-        # live on device — report the true footprint (2x itemsize/slot).
-        return int(self.sketches.size) * 2 * self.sketches.dtype.itemsize
+        return int(self.sketches.size) * self.sketches.dtype.itemsize
 
 
 _WIDER_UNSIGNED = {
@@ -246,31 +243,17 @@ def _check_no_narrowing(in_dtype, target, op: str) -> None:
 
 
 def _slot_corpus(corpus, dtype):
-    """Normalize corpus input: (SketchCorpus | (N, S) array) -> container
-    fields, checking the slot width. A raw array stays on the jnp path
-    (transposing it on device would cost a full corpus copy per call —
-    build a SketchCorpus once to enable the fused kernel)."""
+    """Normalize corpus input: (SketchCorpus | (N, S) array) -> (N, S)
+    sketches, checking the slot width."""
     if isinstance(corpus, SketchCorpus):
         if corpus.dtype != jnp.dtype(dtype):
             raise ContractError(
                 f"slot kNN: corpus slot dtype {corpus.dtype} does not match "
                 f"the {jnp.dtype(dtype)} entry point"
             )
-        return corpus.sketches, corpus.slots_t
+        return corpus.sketches
     _check_no_narrowing(getattr(corpus, "dtype", None), dtype, "slot kNN")
-    return jnp.asarray(corpus, dtype=dtype), None
-
-
-def _use_fused_slot(n: int, k: int, slots_t, n_q: int = 1) -> bool:
-    from innr_tpu import config
-    from innr_tpu.kernels.knn import single_pass_k
-
-    return (
-        slots_t is not None
-        and n >= config.MIN_ROWS_PALLAS
-        and k <= single_pass_k(n_q)
-        and not config.reference_forced()
-    )
+    return jnp.asarray(corpus, dtype=dtype)
 
 
 def _sketch_knn(query, corpus, k: int, dtype, op: str):
@@ -280,19 +263,14 @@ def _sketch_knn(query, corpus, k: int, dtype, op: str):
         raise ContractError(
             f"{op}: query must be 1-D (S,); use {op}_batch for (Q, S) batches"
         )
-    sketches, slots_t = _slot_corpus(corpus, dtype)
+    sketches = _slot_corpus(corpus, dtype)
     _check_len(query, sketches, op)
     n = int(sketches.shape[0])
     if n == 0 or k <= 0:
         return jnp.zeros((0,), jnp.uint32), jnp.zeros((0,), jnp.int32)
     k = min(int(k), n)
-    if _use_fused_slot(n, k, slots_t):
-        from innr_tpu.kernels.slot_knn import fused_slot_knn
-
-        return fused_slot_knn(query, slots_t, k)
-    counts = jnp.sum((sketches != query[None, :]).astype(jnp.int32), axis=1)
-    neg, idx = jax.lax.top_k(-counts, k)
-    return (-neg).astype(jnp.uint32), idx
+    counts, idx = _mismatch_top_k(query[None, :], sketches, k)
+    return counts[0], idx[0]
 
 
 def _sketch_knn_batch(queries, corpus, k: int, dtype, op: str):
@@ -300,31 +278,34 @@ def _sketch_knn_batch(queries, corpus, k: int, dtype, op: str):
     queries = jnp.asarray(queries, dtype=dtype)
     if queries.ndim != 2:
         raise ContractError(f"{op}: queries must be 2-D (Q, S)")
-    sketches, slots_t = _slot_corpus(corpus, dtype)
+    sketches = _slot_corpus(corpus, dtype)
     _check_len(queries, sketches, op)
     n = int(sketches.shape[0])
     n_q = int(queries.shape[0])
     if n == 0 or k <= 0:
         return jnp.zeros((n_q, 0), jnp.uint32), jnp.zeros((n_q, 0), jnp.int32)
     k = min(int(k), n)
-    if _use_fused_slot(n, k, slots_t, n_q):
-        from innr_tpu.kernels.slot_knn import fused_slot_knn_batch
+    return _mismatch_top_k(queries, sketches, k)
 
-        return fused_slot_knn_batch(queries, slots_t, k)
+
+@functools.partial(jax.jit, static_argnames=("k",))
+def _mismatch_top_k(queries, sketches, k: int):
+    """(Q, S) queries x (N, S) sketches -> the k smallest differing-slot
+    counts per query and their rows, in one jitted program (one fused
+    compare + count reduction over the corpus)."""
     counts = jnp.sum(
         (sketches[None, :, :] != queries[:, None, :]).astype(jnp.int32), axis=2
     )  # (Q, N)
-    neg, idx = jax.lax.top_k(-counts, k)
+    neg, idx = top_k_keys(-counts, k)
     return (-neg).astype(jnp.uint32), idx
 
 
 def slot_knn_u32(query, corpus, k: int):
     """Top-k most similar u32 sketches: smallest differing-slot counts.
 
-    TPU-native sketch retrieval (the reference provides only the pairwise
+    Sketch retrieval (the reference provides only the pairwise
     primitive; a MinHash corpus scan is its natural batch form). ``query``:
-    (S,) uint32; ``corpus``: (N, S) uint32 or a :class:`SketchCorpus`
-    (which enables the fused streaming kernel for large N). Returns
+    (S,) uint32; ``corpus``: (N, S) uint32 or a :class:`SketchCorpus`. Returns
     ``(counts ascending, indices)`` as jnp arrays.
     """
     return _sketch_knn(query, corpus, k, jnp.uint32, "slot_knn_u32")
@@ -342,7 +323,7 @@ def slot_knn_u32_batch(queries, corpus, k: int):
 
 def slot_knn_u16(query, corpus, k: int):
     """Top-k most similar u16 sketches (the b=16 b-bit MinHash width,
-    reference ``src/slot.rs:158``): half the HBM bytes and twice the VPU
+    reference ``src/slot.rs:158``): half the HBM bytes and twice the
     lanes of the u32 scan. ``corpus``: (N, S) uint16 or a uint16
     :class:`SketchCorpus`."""
     return _sketch_knn(query, corpus, k, jnp.uint16, "slot_knn_u16")
@@ -396,7 +377,7 @@ def batch_slot_hamming_u32(query, corpus) -> jax.Array:
     """Differing-slot counts of one u32 sketch against a sketch corpus.
 
     ``query``: (S,) uint32, ``corpus``: (N, S) uint32 -> (N,) uint32. The
-    TPU-native batch form: one fused compare-reduce over the corpus read.
+    batch form: one fused compare-reduce over the corpus read.
     """
     query = jnp.asarray(query, dtype=jnp.uint32)
     corpus = jnp.asarray(corpus, dtype=jnp.uint32)

@@ -1,18 +1,20 @@
 """Sparse vector ops (positional API): sorted-index dot and sparse MaxSim.
 
-TPU redesign of reference ``src/sparse.rs``. The reference's merge-join is a
-two-pointer scalar loop — unvectorizable on TPU. The TPU-native form is a
-*binary-search join*: for each index of ``a``, ``searchsorted`` into ``b``
-(O(|a| log |b|) fully parallel VPU work), gather, and mask-accumulate.
+Redesign of reference ``src/sparse.rs``. The reference's merge-join is a
+two-pointer scalar loop — unvectorizable on an accelerator. The batched form
+is a *binary-search join*: for each index of ``a``, ``searchsorted`` into ``b``
+(O(|a| log |b|) fully parallel elementwise work), gather, and mask-accumulate.
 Semantically identical for sorted inputs (duplicate indices match the first
 occurrence; the reference pairs duplicates one-to-one — documented below).
 
-Zero-padding is the TPU batching story: padded entries carry the sentinel
+Zero-padding is the batching story: padded entries carry the sentinel
 index ``0xFFFFFFFF`` and value 0.0, contributing nothing, so token batches
 of ragged sparse vectors become rectangular arrays.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -76,7 +78,7 @@ def sparse_dot(a_indices, a_values, b_indices, b_values) -> jax.Array:
 def pad_sparse(tokens, width: int | None = None) -> tuple[jax.Array, jax.Array]:
     """Pad a list of (indices, values) sparse vectors to a rectangular
     ``(T, width)`` pair of arrays using the sentinel index and 0.0 values —
-    the TPU batching layout for :func:`sparse_maxsim`."""
+    the batching layout for :func:`sparse_maxsim`."""
     tokens = [
         (np.asarray(i, dtype=np.uint32), np.asarray(v, dtype=np.float32))
         for i, v in tokens
@@ -129,10 +131,10 @@ class SparseCorpus:
 
     Corpus-scale retrieval over sparse vectors (SPLADE/BM25-style learned
     sparse embeddings). The reference ships only the pairwise primitives
-    (``src/sparse.rs``); this is their TPU batch form: ragged docs become
+    (``src/sparse.rs``); this is their batch form: ragged docs become
     rectangular sentinel-padded arrays (``pad_sparse``), and a scan is a
     vectorized binary-search join of the query into every document row —
-    O(N L log Lq) fully parallel VPU work, no vocabulary-sized dense
+    O(N L log Lq) fully parallel elementwise work, no vocabulary-sized dense
     scatter, so 32-bit hashed index spaces work unchanged.
     """
 
@@ -146,33 +148,6 @@ class SparseCorpus:
             idx, val = pad_sparse(docs, width)
         self.indices = idx
         self.values = val
-        self._t = None  # lazy (L, N) entry-major transposes (fused kernel)
-        self._finite = None  # lazy all-finite flag (fast fused sweep)
-
-    def _transposed(self):
-        """Cached entry-major ``((L, N) idx, (L, N) val)`` pair — the
-        layout the fused compare-select kernel streams (lane = document;
-        the packed containers' words_t discipline). Materialized on first
-        large-corpus kNN; doubles the corpus footprint only when the
-        Pallas path is actually used."""
-        if self._t is None:
-            from innr_tpu.utils.padding import materialize_words
-
-            self._t = (
-                materialize_words(self.indices.T),
-                materialize_words(self.values.T),
-            )
-        return self._t
-
-    def _all_finite(self) -> bool:
-        """Cached all-finite check over the value array (one corpus pass,
-        computed on first kNN). Gates the fused kernel's fast sweep: with
-        finite values, unmatched entries contribute ``val * 0 == 0``
-        exactly and the per-token ``matched`` tracker (a third of the
-        sweep's VPU ops) is unnecessary."""
-        if self._finite is None:
-            self._finite = bool(jnp.all(jnp.isfinite(self.values)))
-        return self._finite
 
     @property
     def num_docs(self) -> int:
@@ -203,8 +178,7 @@ def _join_scores(q_idx, q_val, idx_any, val_any) -> jax.Array:
     searches into the TINY sorted query (log2 Lq broadcasted compare
     steps over the whole corpus at once) instead of vmapping a per-row
     search of the query into each document — the latter lowers to ~1M
-    tiny gathers and measured 380x slower than this at 1M x 32nnz
-    (11.3 s vs 30 ms; see PERF.md). Duplicate indices match the first
+    tiny gathers. Duplicate indices match the first
     occurrence in the QUERY (identical for well-formed unique-index
     inputs); sentinel-padded entries carry value 0 and never contribute.
     """
@@ -237,32 +211,8 @@ def sparse_knn(query, corpus: SparseCorpus, k: int):
     if n == 0 or k <= 0:
         return jnp.zeros((0,), jnp.float32), jnp.zeros((0,), jnp.int32)
     k = min(int(k), n)
-    from innr_tpu import config as _cfg
-    from innr_tpu.utils.order import top_k_total
-
-    lq = int(q_idx.shape[0])
-    from innr_tpu.kernels.knn import single_pass_k
-    from innr_tpu.kernels.sparse_knn import MAX_QUERY_NNZ
-
-    if (
-        n >= _cfg.MIN_ROWS_PALLAS
-        and 0 < lq <= MAX_QUERY_NNZ
-        and k <= single_pass_k(1)
-        and not _cfg.reference_forced()
-    ):
-        # Fused compare-select join: the searchsorted join's per-element
-        # gathers measured 0.007 of the corpus-read roofline on silicon
-        # (63 ms vs 0.5 ms device time at 1M x 32nnz) — see
-        # kernels/sparse_knn.py for the redesign.
-        from innr_tpu.kernels.sparse_knn import fused_sparse_knn
-
-        idx_t, val_t = corpus._transposed()
-        return fused_sparse_knn(
-            q_idx, q_val, idx_t, val_t, k, fast=corpus._all_finite()
-        )
-
-    scores = _corpus_scores(q_idx, q_val, corpus.indices, corpus.values)
-    return top_k_total(scores, k, largest=True)
+    return _sparse_top_k(q_idx[None], q_val[None], corpus.indices,
+                         corpus.values, k, squeeze=True)
 
 
 def sparse_knn_batch(queries, corpus: SparseCorpus, k: int):
@@ -278,18 +228,23 @@ def sparse_knn_batch(queries, corpus: SparseCorpus, k: int):
     if n == 0 or k <= 0:
         return jnp.zeros((n_q, 0), jnp.float32), jnp.zeros((n_q, 0), jnp.int32)
     k = min(int(k), n)
-    from innr_tpu.utils.order import top_k_total
-
     if n_q == 0:
         return jnp.zeros((0, k), jnp.float32), jnp.zeros((0, k), jnp.int32)
-    # Static Python loop over queries: vmap over searchsorted's sorted
-    # side de-vectorizes the join (measured ~90x; see _corpus_maxsim_scores).
-    scores = jnp.stack(
-        [
-            _corpus_scores(q_idx[qi], q_val[qi], corpus.indices, corpus.values)
-            for qi in range(q_idx.shape[0])
-        ]
-    )  # (Q, N)
+    return _sparse_top_k(q_idx, q_val, corpus.indices, corpus.values, k)
+
+
+@functools.partial(jax.jit, static_argnames=("k", "squeeze"))
+def _sparse_top_k(q_idx, q_val, c_idx, c_val, k: int, squeeze: bool = False):
+    """(Q, Lq) sorted padded queries joined into every (N, L) doc row,
+    then top-k per query, in one jitted program. A static loop over the
+    queries: vmap over searchsorted's sorted side de-vectorizes the join
+    (see _corpus_maxsim_scores)."""
+    from innr_tpu.utils.order import top_k_total
+
+    scores = jnp.stack([_corpus_scores(q_idx[qi], q_val[qi], c_idx, c_val)
+                        for qi in range(q_idx.shape[0])])  # (Q, N)
+    if squeeze:
+        scores = scores[0]
     return top_k_total(scores, k, largest=True)
 
 
@@ -374,8 +329,7 @@ def _corpus_maxsim_scores(q_idx2, q_val2, d_idx, d_val, d_tok_mask) -> jax.Array
     query token scan-joins the ENTIRE corpus token block in one
     vectorized pass. The iteration is a PYTHON loop, deliberately:
     ``jax.vmap`` over the *sorted* side of ``searchsorted`` de-vectorizes
-    the search (measured 89x slower at 100K docs; the unrolled loop costs
-    the same as a single token — XLA fuses the independent passes)."""
+    the search; XLA fuses the unrolled loop's independent passes."""
     neg_inf = jnp.float32(-jnp.inf)
     total = None
     for i in range(q_idx2.shape[0]):

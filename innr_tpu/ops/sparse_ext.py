@@ -1,15 +1,15 @@
 """Sparse primitives for learned sparse retrieval (tuple-based API).
 
-TPU redesign of reference ``src/sparse_ext.rs`` (the reference's optional
+Redesign of reference ``src/sparse_ext.rs`` (the reference's optional
 ``sparse`` cargo feature). A sparse vector here is an ``(indices, values)``
 array pair — the structure-of-arrays form of the reference's
-``&[(u32, f32)]`` tuple slices, which is the only layout TPU gathers can
+``&[(u32, f32)]`` tuple slices, which is the layout device gathers
 consume.
 
 ``sparse_dense_dot`` keeps the reference's safety contract exactly: entries
 whose dimension is out of bounds for the dense vector are *skipped*, and the
 bounds decision uses the true maximum over all entries, never a sortedness
-assumption (regression at reference ``src/sparse_ext.rs:190-202``). On TPU
+assumption (regression at reference ``src/sparse_ext.rs:190-202``). Here
 every gather is clamped and masked, so the unsafe fast path and the checked
 slow path collapse into one kernel.
 """

@@ -1,8 +1,8 @@
 """Ternary (1.58-bit) quantization: {-1, 0, +1} packed vectors.
 
-TPU redesign of reference ``src/ternary.rs``. The reference interleaves two
+Redesign of reference ``src/ternary.rs``. The reference interleaves two
 bits per value inside u64 words (00=0, 01=+1, 10=-1) and extracts sign
-planes with ODD/EVEN masks on every op (``src/ternary.rs:225-256``). On TPU
+planes with ODD/EVEN masks on every op (``src/ternary.rs:225-256``). Here
 we store the two *bitplanes directly* — ``pos`` and ``neg`` uint32 word
 arrays — which is the layout the extraction produces, so every op starts
 where the reference's inner loop ends (survey-sanctioned layout change;
@@ -11,17 +11,19 @@ semantics identical). Compression is identical: 2 bits/value.
 Inner product: ``popcount(same-sign) - popcount(diff-sign)``
 (reference ``src/ternary.rs:198``). Hamming counts opposite-sign positions
 (``:308``). ``asymmetric_dot`` scores an f32 query against the ternary doc
-(``:293``); its batch form is two MXU-friendly masked reductions.
+(``:293``); its batch form is two matmul-friendly masked reductions.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from innr_tpu.utils.asserts import ContractError
-from innr_tpu.utils.padding import materialize_words
+from innr_tpu.utils.order import top_k_keys
 
 __all__ = [
     "PackedTernary",
@@ -56,7 +58,7 @@ def _mask_padding(words: jax.Array, dimension: int) -> jax.Array:
 
 class PackedTernary:
     """Packed ternary vector as two uint32 bitplanes
-    (reference ``src/ternary.rs:57``, layout redesigned for TPU).
+    (reference ``src/ternary.rs:57``, layout redesigned for batched scans).
 
     ``pos`` bit set -> value +1; ``neg`` bit set -> value -1; neither -> 0.
     A bit must never be set in both planes (the reference's reserved ``11``
@@ -107,7 +109,7 @@ class PackedTernary:
         return encode_ternary_values(vals)
 
     def data(self) -> tuple[jax.Array, jax.Array]:
-        """Raw (pos, neg) bitplanes — the TPU-native serialization."""
+        """Raw (pos, neg) bitplanes — the native serialization."""
         return self.pos, self.neg
 
     def to_interleaved_u64(self) -> np.ndarray:
@@ -220,7 +222,7 @@ def encode_ternary_values(values) -> PackedTernary:
 
 def encode_ternary_batch(rows, threshold: float) -> tuple[jax.Array, jax.Array]:
     """Encode an (N, D) corpus -> ((N, W) pos, (N, W) neg) uint32 planes —
-    the TPU-native batch encoder."""
+    the batch encoder."""
     rows = jnp.asarray(rows, dtype=jnp.float32)
     return (
         _pack_bits(rows > jnp.float32(threshold)),
@@ -286,17 +288,11 @@ def sparsity(v: PackedTernary) -> float:
 
 def batch_ternary_dot(query: PackedTernary, pos_corpus, neg_corpus) -> jax.Array:
     """Ternary dots of one query against an encoded corpus
-    ((N, W) pos/neg planes) -> (N,) int32. One fused XOR/AND + popcount
-    pass; dispatches to the Pallas kernel for large corpora."""
+    ((N, W) pos/neg planes) -> (N,) int32. One fused AND/OR + popcount
+    pass."""
     pos_c = jnp.asarray(pos_corpus, dtype=jnp.uint32)
     neg_c = jnp.asarray(neg_corpus, dtype=jnp.uint32)
     qp, qn = query.pos[None, :], query.neg[None, :]
-    from innr_tpu import config
-
-    if pos_c.shape[0] >= config.MIN_ROWS_PALLAS and not config.reference_forced():
-        from innr_tpu.kernels import hamming as _kern
-
-        return _kern.batch_ternary_dot_words(query.pos, query.neg, pos_c, neg_c)
     same = (qp & pos_c) | (qn & neg_c)
     diff = (qp & neg_c) | (qn & pos_c)
     counts = jax.lax.population_count(same).astype(jnp.int32) - jax.lax.population_count(
@@ -306,10 +302,9 @@ def batch_ternary_dot(query: PackedTernary, pos_corpus, neg_corpus) -> jax.Array
 
 
 class PackedTernaryBatch:
-    """An encoded ternary corpus: (N, W) pos/neg planes plus cached
-    word-major transposes for the fused kNN kernel."""
+    """An encoded ternary corpus: (N, W) pos/neg planes."""
 
-    __slots__ = ("pos", "neg", "pos_t", "neg_t", "_dimension")
+    __slots__ = ("pos", "neg", "_dimension")
 
     def __init__(self, pos, neg, dimension: int):
         pos = jnp.asarray(pos, dtype=jnp.uint32)
@@ -321,8 +316,6 @@ class PackedTernaryBatch:
             )
         self.pos = _mask_padding(pos, dimension)
         self.neg = _mask_padding(neg, dimension)
-        self.pos_t = materialize_words(self.pos.T)
-        self.neg_t = materialize_words(self.neg.T)
         self._dimension = int(dimension)
 
     @classmethod
@@ -347,8 +340,7 @@ def ternary_knn(query: PackedTernary, corpus: PackedTernaryBatch, k: int):
     """Top-k largest ternary dots over an encoded corpus — the symmetric
     coarse stage of the ternary pipeline (reference examples/ternary_demo.rs).
 
-    Returns ``(dots descending, indices)`` numpy arrays. Large corpora run
-    the fused Pallas sign-agreement scan.
+    Returns ``(dots descending, indices)`` numpy arrays.
     """
     if query.dimension != corpus.dimension:
         raise ContractError(
@@ -359,22 +351,13 @@ def ternary_knn(query: PackedTernary, corpus: PackedTernaryBatch, k: int):
     if n == 0 or k == 0:
         return np.zeros((0,), np.int32), np.zeros((0,), np.int64)
     k = min(int(k), n)
-    from innr_tpu import config
-
-    if n >= config.MIN_ROWS_PALLAS and k <= _packed_k_cap(1) and not config.reference_forced():
-        from innr_tpu.kernels import packed_knn as _kern
-
-        dots, idx = _kern.fused_ternary_knn(
-            query.pos, query.neg, corpus.pos_t, corpus.neg_t, k
-        )
-    else:
-        all_dots = batch_ternary_dot(query, corpus.pos, corpus.neg)
-        dots, idx = jax.lax.top_k(all_dots, k)
-    return np.asarray(dots), np.asarray(idx, dtype=np.int64)
+    dots, idx = _ternary_top_k(query.pos[None, :], query.neg[None, :],
+                               corpus.pos, corpus.neg, k)
+    return np.asarray(dots[0]), np.asarray(idx[0], dtype=np.int64)
 
 
 def ternary_knn_batch(queries, corpus: PackedTernaryBatch, k: int):
-    """Multi-query ternary kNN: one fused launch for a query batch.
+    """Multi-query ternary kNN: one scan for a query batch.
 
     ``queries``: list of :class:`PackedTernary` or a
     :class:`PackedTernaryBatch`. Returns ``(dots (Q, k), indices (Q, k))``.
@@ -399,35 +382,30 @@ def ternary_knn_batch(queries, corpus: PackedTernaryBatch, k: int):
         n_q = int(qp.shape[0])
         return np.zeros((n_q, 0), np.int32), np.zeros((n_q, 0), np.int64)
     k = min(int(k), n)
-    from innr_tpu import config
-
-    if n >= config.MIN_ROWS_PALLAS and k <= _packed_k_cap(int(qp.shape[0])) and not config.reference_forced():
-        from innr_tpu.kernels import packed_knn as _kern
-
-        dots, idx = _kern.fused_ternary_knn_batch(
-            qp, qn, corpus.pos_t, corpus.neg_t, k
-        )
-    else:
-        same = (qp[:, None, :] & corpus.pos[None, :, :]) | (
-            qn[:, None, :] & corpus.neg[None, :, :]
-        )
-        diff = (qp[:, None, :] & corpus.neg[None, :, :]) | (
-            qn[:, None, :] & corpus.pos[None, :, :]
-        )
-        all_dots = jnp.sum(
-            jax.lax.population_count(same).astype(jnp.int32)
-            - jax.lax.population_count(diff).astype(jnp.int32),
-            axis=2,
-        )
-        dots, idx = jax.lax.top_k(all_dots, k)
+    dots, idx = _ternary_top_k(qp, qn, corpus.pos, corpus.neg, k)
     return np.asarray(dots), np.asarray(idx, dtype=np.int64)
+
+
+@functools.partial(jax.jit, static_argnames=("k",))
+def _ternary_top_k(qp, qn, pos, neg, k: int):
+    """(Q, W) query planes x (N, W) corpus planes -> the k largest
+    ternary dots per query and their rows, in one jitted program (one
+    fused AND/OR + popcount reduction over the corpus)."""
+    same = (qp[:, None, :] & pos[None, :, :]) | (qn[:, None, :] & neg[None, :, :])
+    diff = (qp[:, None, :] & neg[None, :, :]) | (qn[:, None, :] & pos[None, :, :])
+    dots = jnp.sum(
+        jax.lax.population_count(same).astype(jnp.int32)
+        - jax.lax.population_count(diff).astype(jnp.int32),
+        axis=2,
+    )
+    return top_k_keys(dots, k)
 
 
 def batch_asymmetric_dot(query, pos_corpus, neg_corpus, dimension: int) -> jax.Array:
     """f32 query x encoded ternary corpus -> (N,) f32 rerank scores.
 
     Unpacks the corpus planes to a {-1,0,+1} matrix on-chip and scores with
-    one MXU matvec — HBM traffic stays at 2 bits/value.
+    one matvec — HBM traffic stays at 2 bits/value.
     """
     query = jnp.asarray(query, dtype=jnp.float32)
     pos_m = _unpack_plane(jnp.asarray(pos_corpus, dtype=jnp.uint32), dimension)
@@ -439,13 +417,3 @@ def batch_asymmetric_dot(query, pos_corpus, neg_corpus, dimension: int) -> jax.A
         preferred_element_type=jnp.float32,
         precision=config.matmul_precision(),
     )
-
-
-def _packed_k_cap(n_q: int) -> int:
-    """Largest k the fused packed kernel supports in one pass for an
-    n_q-query batch (the VMEM running-best budget; kernels/knn.py).
-    Beyond it the jnp fallback runs — packed corpora are coarse stages
-    whose k is a rerank budget, so this cap is far past practical use."""
-    from innr_tpu.kernels.knn import single_pass_k
-
-    return single_pass_k(n_q)

@@ -15,7 +15,7 @@ reference feeds one candidate at a time. Two tiers:
   insertion loop of the reference compiled for the host — with a NumPy
   fallback of identical semantics.
 
-On TPU the batch kNN paths never touch this class: they select with the
+On the device the batch kNN paths never touch this class: they select with the
 integer total-order ``lax.top_k`` (:func:`innr_tpu.utils.order.top_k_total`),
 which is differential-tested to produce identical results to draining the
 candidate stream through this tracker.

@@ -1,9 +1,9 @@
 """Distribution layer: sharded corpora and distributed top-k merge.
 
 The reference is single-core (survey §2.4: no threads, no distributed
-communication of any kind); scaling past one chip is a TPU-native addition
-mandated by the north star. The design: shard the corpus rows across an ICI
-mesh with ``NamedSharding``, run the fused local scan per shard under
+communication of any kind); scaling past one device is an addition mandated
+by the north star. The design: shard the corpus rows across a device mesh
+with ``NamedSharding``, run the local scan per shard under
 ``shard_map``, all-gather the tiny per-shard (score, global-index) top-k
 pairs, and merge — XLA supplies the collectives, there is no hand-written
 transport layer.

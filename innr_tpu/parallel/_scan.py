@@ -1,77 +1,36 @@
 """Shared per-device scan body + key decoding for the distribution layer.
 
 Every distributed index (row-sharded, query-parallel, 2-D grid) runs the
-same local step — fused streaming kernel or jnp fallback producing raw
-int32 total-order keys with global row indices — and the same decode after
-the merge. Centralizing it here keeps the subtle invariants (the L2 key
-flip differs between arms: the fused kernel's keys come pre-flipped but
-lack the ||q||^2 term, the jnp arm's carry it) in exactly one place.
+same local step — :func:`innr_tpu.scan.knn_keys` producing raw int32
+total-order keys, offset to global row indices — and the same decode after
+the merge (:func:`innr_tpu.scan.decode_keys`).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
+from innr_tpu import scan
 from innr_tpu.utils.asserts import ContractError
-from innr_tpu.utils.order import total_order_key_f32
 
 _INT_MIN = jnp.iinfo(jnp.int32).min
 
 
-def _invert_total_key(keys: jax.Array) -> jax.Array:
-    """Inverse of ``total_order_key_f32`` (the transform is an involution).
-
-    Select form rather than ``(keys >> 31) >>> 1`` for the same reason as
-    the forward transform (``utils/order.py``): the shift constant is
-    clamp-degenerate under XLA, the comparison and constant here are not.
-    """
-    mask = jnp.where(keys < 0, jnp.int32(0x7FFFFFFF), jnp.int32(0))
-    return jax.lax.bitcast_convert_type(keys ^ mask, jnp.float32)
-
-
-def local_scan_keys(qs, rows, aux, n_total, k, mode, use_fused, base):
+def local_scan_keys(qs, rows, aux, n_total, k, mode, base, route=None):
     """One device's local top-k: (Q, D) queries x (rows_local, D) corpus
     block -> ``(keys (Q, k), global_idx (Q, k))``, keys being raw int32
-    total-order values (larger = better for every mode; L2 pre-flipped).
+    total-order values (larger = better for every mode; L2 flipped).
 
     ``aux``: per-row squared norms ("l2"), guarded inverse norms
-    ("cosine"), or None/unused ("dot"). ``base``: this block's global row
-    offset. Rows at or beyond ``n_total`` (padding) are masked to INT_MIN.
+    ("cosine"), stacked norms and predicate ("l2m"), or None ("dot").
+    ``base``: this block's global row offset. Rows at or beyond
+    ``n_total`` (padding) get the smallest key; callers over-fetch ``k``
+    by the padding count so padding never displaces a real row.
     """
-    n_rows_local = rows.shape[0]
-
-    if use_fused:
-        from innr_tpu.kernels.knn import fused_knn_keys_batch
-
-        keys, lidx = fused_knn_keys_batch(qs, rows, aux, k, mode)
-        gidx = base + lidx
-        keys = jnp.where(gidx < n_total, keys, _INT_MIN)
-        return keys, gidx
-
-    from innr_tpu import config
-
-    if mode == "l2":
-        d = rows[None, :, :].astype(jnp.float32) - qs[:, None, :]
-        scores = jnp.sum(d * d, axis=2)
-    else:
-        scores = jnp.matmul(
-            qs, rows.T.astype(jnp.float32),
-            preferred_element_type=jnp.float32,
-            precision=config.matmul_precision(),
-        )
-        if mode == "cosine":
-            # Queries arrive pre-normalized; scale by per-row inverse norms
-            # (zero-norm rows score exactly 0.0, the reference guard).
-            scores = scores * aux[None, :]
-    keys = total_order_key_f32(scores)
-    if mode == "l2":
-        keys = ~keys  # smaller distance = better
-    gidx_row = base + jnp.arange(n_rows_local, dtype=jnp.int32)
-    keys = jnp.where(gidx_row[None, :] < n_total, keys, _INT_MIN)
-    top_keys, tidx = jax.lax.top_k(keys, k)
-    return top_keys, gidx_row[tidx]
+    keys, lidx = scan.knn_keys(qs, rows, aux, k, mode, route=route)
+    gidx = base + lidx
+    return jnp.where(gidx < n_total, keys, _INT_MIN), gidx
 
 
 def resolve_predicate_mask(predicate, n: int, op: str):
@@ -92,41 +51,16 @@ def resolve_predicate_mask(predicate, n: int, op: str):
     return mask, int(mask.sum())
 
 
-def local_scan_keys_filtered(qs, rows, norms2, mask, n_total, k, use_fused, base):
+def local_scan_keys_filtered(qs, rows, norms2, mask, n_total, k, base,
+                             route=None):
     """Predicate-pushdown variant of :func:`local_scan_keys` (L2 only):
     ``mask`` is this block's (rows_local,) f32 0/1 predicate — non-passing
     rows can never win (reference src/batch.rs:842-845)."""
-    if use_fused:
-        from innr_tpu.kernels.knn import fused_knn_keys_batch
-
-        aux = jnp.stack([norms2, mask])
-        keys, lidx = fused_knn_keys_batch(qs, rows, aux, k, "l2m")
-        gidx = base + lidx
-        keys = jnp.where(gidx < n_total, keys, _INT_MIN)
-        return keys, gidx
-
-    d = rows[None, :, :].astype(jnp.float32) - qs[:, None, :]
-    scores = jnp.sum(d * d, axis=2)
-    keys = ~total_order_key_f32(scores)  # smaller distance = better
-    keys = jnp.where(mask[None, :] > 0.0, keys, _INT_MIN)
-    gidx_row = base + jnp.arange(rows.shape[0], dtype=jnp.int32)
-    keys = jnp.where(gidx_row[None, :] < n_total, keys, _INT_MIN)
-    top_keys, tidx = jax.lax.top_k(keys, k)
-    return top_keys, gidx_row[tidx]
+    return local_scan_keys(qs, rows, jnp.stack([norms2, mask]), n_total, k,
+                           "l2m", base, route=route)
 
 
-def decode_keys(keys, mode, use_fused, qs):
-    """Raw merged keys -> f32 score values.
-
-    L2 keys flip back to ascending distances; the fused arm's L2 keys come
-    from the MXU decomposition WITHOUT the per-query ||q||^2 shift
-    (monotone — cannot change selection), so it is re-added and clamped at
-    zero here, while the jnp arm's keys already carry it.
-    """
-    if mode == "l2":
-        keys = ~keys
-    vals = _invert_total_key(keys)
-    if mode == "l2" and use_fused:
-        qq = jnp.sum(qs * qs, axis=1, keepdims=True)
-        vals = jnp.maximum(vals + qq, 0.0)
-    return vals
+def decode_keys(keys, mode, qs, n_rows, route="xla"):
+    """Raw merged keys -> f32 scores for scans over ``n_rows``-row blocks
+    on ``route`` (see :func:`innr_tpu.scan.decode_keys`)."""
+    return scan.decode_keys(keys, mode, qs, n_rows, route)

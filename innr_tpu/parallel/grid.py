@@ -5,10 +5,10 @@ factorizes: axis ``"shards"`` partitions corpus rows (as
 :class:`~innr_tpu.parallel.sharded.ShardedCorpus`), axis ``"queries"``
 partitions the query batch (as
 :class:`~innr_tpu.parallel.query_parallel.QueryParallelIndex`). Each
-device holds one (query-slice x corpus-shard) block, runs the fused
-streaming kernel on it, and the per-shard top-k candidates merge ONLY
+device holds one (query-slice x corpus-shard) block, runs the dense
+scan on it, and the per-shard top-k candidates merge ONLY
 along the ``"shards"`` axis — the ``"queries"`` axis never communicates.
-ICI traffic per query stays k pairs per corpus shard, independent of the
+Interconnect traffic per query stays k pairs per corpus shard, independent of the
 query-parallel degree.
 
 This is the standard 2-D decomposition (data-parallel x model/tensor-
@@ -26,11 +26,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from innr_tpu import scan
 from innr_tpu.parallel._scan import (
     decode_keys,
     local_scan_keys,
     local_scan_keys_filtered,
 )
+from innr_tpu.route import current_route
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.padding import pad_axis_to, round_up
 
@@ -42,7 +44,7 @@ QUERY_AXIS = "queries"
 
 def grid_mesh(corpus_shards: int, query_shards: int, devices=None) -> Mesh:
     """A (queries, shards) 2-D mesh over ``corpus_shards * query_shards``
-    devices. Corpus shards ride the minor (fastest, contiguous-ICI) axis."""
+    devices. Corpus shards ride the minor axis."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     need = corpus_shards * query_shards
     if devices.size < need:
@@ -53,31 +55,29 @@ def grid_mesh(corpus_shards: int, query_shards: int, devices=None) -> Mesh:
     return Mesh(grid, (QUERY_AXIS, CORPUS_AXIS))
 
 
-def _local_grid_topk(qs_block, rows_shard, aux_shard, n_total, k, mode, use_fused):
+def _local_grid_topk(qs_block, rows_shard, aux_shard, n_total, k, mode, route):
     """Per-device body: this device's query slice x corpus shard. Shared
     body: :func:`innr_tpu.parallel._scan.local_scan_keys`."""
     base = jax.lax.axis_index(CORPUS_AXIS) * rows_shard.shape[0]
     return local_scan_keys(
-        qs_block, rows_shard, aux_shard, n_total, k, mode, use_fused, base
+        qs_block, rows_shard, aux_shard, n_total, k, mode, base, route=route
     )
 
 
 @partial(
     jax.jit,
-    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "use_fused"),
+    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "route",
+                     "shard_rows"),
 )
 def _grid_knn(
     qs_sharded, rows_sharded, aux_sharded, k: int, k_local: int, mode: str,
-    n_total: int, mesh: Mesh, use_fused: bool,
+    n_total: int, mesh: Mesh, route: str, shard_rows: int,
 ):
     if mode == "cosine":
-        from innr_tpu.kernels.knn import _unit_queries
-
-        qs_sharded = _unit_queries(qs_sharded)
+        qs_sharded = scan.unit_queries(qs_sharded)
     has_aux = mode != "dot"
     body = partial(
-        _local_grid_topk, n_total=n_total, k=k_local, mode=mode,
-        use_fused=use_fused,
+        _local_grid_topk, n_total=n_total, k=k_local, mode=mode, route=route,
     )
     if not has_aux:
         body = partial(lambda q_, r_, f_: f_(q_, r_, None), f_=body)
@@ -87,47 +87,47 @@ def _grid_knn(
         in_specs=(P(QUERY_AXIS, None), P(CORPUS_AXIS, None))
         + ((P(CORPUS_AXIS),) if has_aux else ()),
         out_specs=(P(QUERY_AXIS, CORPUS_AXIS), P(QUERY_AXIS, CORPUS_AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     args = (qs_sharded, rows_sharded) + ((aux_sharded,) if has_aux else ())
     keys, gidx = local(*args)  # (Q_pad, corpus_shards * k_local)
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    vals = decode_keys(merged_keys, mode, use_fused, qs_sharded)
+    vals = decode_keys(merged_keys, mode, qs_sharded, shard_rows, route)
     return vals, idx
 
 
 def _local_grid_filtered(qs_block, rows_shard, norms_shard, mask_shard,
-                         n_total, k, use_fused):
+                         n_total, k, route):
     base = jax.lax.axis_index(CORPUS_AXIS) * rows_shard.shape[0]
     return local_scan_keys_filtered(
-        qs_block, rows_shard, norms_shard, mask_shard, n_total, k,
-        use_fused, base,
+        qs_block, rows_shard, norms_shard, mask_shard, n_total, k, base,
+        route=route,
     )
 
 
 @partial(
-    jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused")
+    jax.jit,
+    static_argnames=("k", "k_local", "n_total", "mesh", "route", "shard_rows"),
 )
 def _grid_knn_filtered(
     qs_sharded, rows_sharded, norms_sharded, mask_sharded, k: int,
-    k_local: int, n_total: int, mesh: Mesh, use_fused: bool,
+    k_local: int, n_total: int, mesh: Mesh, route: str, shard_rows: int,
 ):
     local = jax.shard_map(
         partial(
-            _local_grid_filtered, n_total=n_total, k=k_local,
-            use_fused=use_fused,
+            _local_grid_filtered, n_total=n_total, k=k_local, route=route,
         ),
         mesh=mesh,
         in_specs=(P(QUERY_AXIS, None), P(CORPUS_AXIS, None),
                   P(CORPUS_AXIS), P(CORPUS_AXIS)),
         out_specs=(P(QUERY_AXIS, CORPUS_AXIS), P(QUERY_AXIS, CORPUS_AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     keys, gidx = local(qs_sharded, rows_sharded, norms_sharded, mask_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    vals = decode_keys(merged_keys, "l2", use_fused, qs_sharded)
+    vals = decode_keys(merged_keys, "l2m", qs_sharded, shard_rows, route)
     return vals, idx
 
 
@@ -175,19 +175,23 @@ class GridIndex:
     def _aux(self, mode: str):
         if mode == "l2":
             if self._norms2 is None:
-                self._norms2 = jax.jit(
-                    lambda r: jnp.sum(
-                        r.astype(jnp.float32) * r.astype(jnp.float32), axis=1
-                    )
-                )(self.rows)
+                self._norms2 = scan.sq_norms(self.rows)
             return self._norms2
         if mode == "cosine":
             if self._inv_norms is None:
-                from innr_tpu.kernels.knn import inv_norms
-
-                self._inv_norms = jax.jit(inv_norms)(self.rows)
+                self._inv_norms = scan.inv_norms(self.rows)
             return self._inv_norms
         return None
+
+    def _plan(self, k: int, q_pad: int):
+        """``(shard_rows, k_local, route)``: each block over-fetches by the
+        pad-row count (padding is masked after the local top-k)."""
+        pad = self.n_pad - self.n_true
+        shard_rows = self.n_pad // self.n_shards
+        k_local = min(k + pad, shard_rows)
+        route = current_route("dense", shard_rows, k_local, self.rows.dtype,
+                              q_pad // self.n_qgroups, self.dimension)
+        return shard_rows, k_local, route
 
     def _run(self, queries, k: int, mode: str, op: str):
         qs = jnp.asarray(queries, dtype=jnp.float32)
@@ -208,18 +212,10 @@ class GridIndex:
         qs_sharded = jax.device_put(
             qs_p, NamedSharding(self.mesh, P(QUERY_AXIS, None))
         )
-        from innr_tpu import config
-
-        pad = self.n_pad - self.n_true
-        shard_rows = self.n_pad // self.n_shards
-        use_fused = (
-            not config.reference_forced()
-            and shard_rows >= config.MIN_ROWS_PALLAS
-        )
-        k_local = min(k + pad, shard_rows) if use_fused else min(k, shard_rows)
+        shard_rows, k_local, route = self._plan(k, q_pad)
         vals, idx = _grid_knn(
             qs_sharded, self.rows, self._aux(mode), k, k_local, mode,
-            self.n_true, self.mesh, use_fused,
+            self.n_true, self.mesh, route, shard_rows,
         )
         return vals[:n_q], idx[:n_q]
 
@@ -271,17 +267,9 @@ class GridIndex:
             pad_axis_to(qs, 0, q_pad),
             NamedSharding(self.mesh, P(QUERY_AXIS, None)),
         )
-        from innr_tpu import config
-
-        pad = self.n_pad - self.n_true
-        shard_rows = self.n_pad // self.n_shards
-        use_fused = (
-            not config.reference_forced()
-            and shard_rows >= config.MIN_ROWS_PALLAS
-        )
-        k_local = min(k + pad, shard_rows) if use_fused else min(k, shard_rows)
+        shard_rows, k_local, route = self._plan(k, q_pad)
         vals, idx = _grid_knn_filtered(
             qs_sharded, self.rows, self._aux("l2"), mask_sharded, k,
-            k_local, self.n_true, self.mesh, use_fused,
+            k_local, self.n_true, self.mesh, route, shard_rows,
         )
         return vals[:n_q], idx[:n_q]

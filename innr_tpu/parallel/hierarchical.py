@@ -3,7 +3,7 @@
 :class:`innr_tpu.parallel.sharded.ShardedCorpus` merges with ONE
 collective hop: every device all-gathers ``num_devices * k_local``
 candidates. Within a single ICI-connected slice that is the right call —
-the payload is a few KB riding a ~100 GB/s fabric. Across
+the payload is a few KB on a fast fabric. Across
 DCN-connected slices (multi-pod), shipping every device's candidates to
 every other device wastes the thin inter-slice links.
 
@@ -38,7 +38,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from innr_tpu import scan
 from innr_tpu.parallel._scan import decode_keys, local_scan_keys
+from innr_tpu.route import current_route
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.padding import pad_axis_to, round_up
 
@@ -69,20 +71,20 @@ def hierarchical_mesh(n_slices: int, per_slice: int | None = None,
 def _topk_keys(keys, gidx, k):
     """Top-k by (key desc, global index asc) — the shared tie discipline,
     via one two-key sort (ascending ~key, then ascending index), exactly
-    the streaming kernel's buffer order. No int64 composite: default jax
+    the dense scan's tie order. No int64 composite: default jax
     would silently demote it."""
     skeys, sgidx = jax.lax.sort((~keys, gidx), dimension=-1, num_keys=2)
     return ~skeys[:, :k], sgidx[:, :k]
 
 
 def _local_body(qs, rows_shard, aux_shard, n_total, k_local, k, mode,
-                use_fused):
+                route):
     """Per-device body under shard_map on the (dcn, ici) mesh."""
     slice_id = jax.lax.axis_index(DCN_AXIS)
     dev_id = jax.lax.axis_index(ICI_AXIS)
     base = (slice_id * jax.lax.axis_size(ICI_AXIS) + dev_id) * rows_shard.shape[0]
     keys, gidx = local_scan_keys(
-        qs, rows_shard, aux_shard, n_total, k_local, mode, use_fused, base
+        qs, rows_shard, aux_shard, n_total, k_local, mode, base, route=route
     )
     # Stage 1 — within-slice merge over ICI only (nothing crosses DCN).
     keys_s = jax.lax.all_gather(keys, ICI_AXIS, axis=1, tiled=True)
@@ -101,21 +103,20 @@ def _local_body(qs, rows_shard, aux_shard, n_total, k_local, k, mode,
 
 @partial(
     jax.jit,
-    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "use_fused"),
+    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "route",
+                     "shard_rows"),
 )
 def _hier_knn(qs, rows_sharded, aux_sharded, k, k_local, mode, n_total,
-              mesh: Mesh, use_fused):
+              mesh: Mesh, route, shard_rows):
     single = qs.ndim == 1
     if single:
         qs = qs[None, :]
     if mode == "cosine":
-        from innr_tpu.kernels.knn import _unit_queries
-
-        qs = _unit_queries(qs)
+        qs = scan.unit_queries(qs)
     has_aux = mode != "dot"
     body = partial(
         _local_body, n_total=n_total, k_local=k_local, k=k, mode=mode,
-        use_fused=use_fused,
+        route=route,
     )
     if not has_aux:
         body = partial(lambda q_, r_, f_: f_(q_, r_, None), f_=body)
@@ -129,7 +130,7 @@ def _hier_knn(qs, rows_sharded, aux_sharded, k, k_local, mode, n_total,
     )
     args = (qs, rows_sharded) + ((aux_sharded,) if has_aux else ())
     keys, gidx = local(*args)
-    vals = decode_keys(keys, mode, use_fused, qs)
+    vals = decode_keys(keys, mode, qs, shard_rows, route)
     if single:
         return vals[0], gidx[0]
     return vals, gidx
@@ -180,23 +181,15 @@ class HierarchicalCorpus:
     def _aux(self, mode: str):
         if mode == "l2":
             if self._norms2 is None:
-                self._norms2 = jax.jit(
-                    lambda r: jnp.sum(
-                        r.astype(jnp.float32) * r.astype(jnp.float32), axis=1
-                    )
-                )(self.rows)
+                self._norms2 = scan.sq_norms(self.rows)
             return self._norms2
         if mode == "cosine":
             if self._inv_norms is None:
-                from innr_tpu.kernels.knn import inv_norms
-
-                self._inv_norms = jax.jit(inv_norms)(self.rows)
+                self._inv_norms = scan.inv_norms(self.rows)
             return self._inv_norms
         return None
 
     def _run(self, query, k: int, mode: str, op: str):
-        from innr_tpu import config
-
         q = jnp.asarray(query, dtype=jnp.float32)
         if q.ndim not in (1, 2) or q.shape[-1] != self.dimension:
             raise ContractError(
@@ -212,18 +205,15 @@ class HierarchicalCorpus:
                 )
             return jnp.zeros((0,), jnp.float32), jnp.zeros((0,), jnp.int32)
         k = min(int(k), self.num_vectors)
+        # Padding is masked after the local top-k: over-fetch by its count.
         pad = self.n_pad - self.n_true
-        use_fused = (
-            not config.reference_forced()
-            and self.shard_rows >= config.MIN_ROWS_PALLAS
-        )
-        k_local = (
-            min(k + pad, self.shard_rows) if use_fused
-            else min(k, self.shard_rows)
-        )
+        k_local = min(k + pad, self.shard_rows)
+        n_q = int(q.shape[0]) if q.ndim == 2 else 1
+        route = current_route("dense", self.shard_rows, k_local,
+                              self.rows.dtype, n_q, self.dimension)
         return _hier_knn(
             q, self.rows, self._aux(mode), k, k_local, mode, self.n_true,
-            self.mesh, use_fused,
+            self.mesh, route, self.shard_rows,
         )
 
     def knn_dot(self, query, k: int):

@@ -1,16 +1,15 @@
-"""Multi-host / multi-slice initialization and corpus construction.
+"""Multi-host initialization and corpus construction.
 
 The single-controller JAX runtime spans hosts once ``jax.distributed`` is
 initialized: every process sees the global device list, `Mesh` axes can
-span slices, and XLA routes collectives over ICI within a slice and DCN
-across slices (survey §5.8 — the framework supplies shardings, not a
+span hosts, and XLA routes collectives over the links within a host and
+the network between hosts (survey §5.8 — the framework supplies shardings, not a
 transport layer).
 
 Deployment recipe for an N-host corpus:
 
-1. every process calls :func:`initialize` (TPU pods auto-discover; other
-   topologies pass coordinator/process counts explicitly or via the
-   standard env vars);
+1. every process calls :func:`initialize`, passing coordinator/process
+   counts explicitly or via the standard env vars;
 2. each host loads ONLY its local rows (1/N of the corpus — no host ever
    materializes the full array) and calls
    :func:`corpus_from_process_local_rows`, which assembles a globally
@@ -18,7 +17,7 @@ Deployment recipe for an N-host corpus:
    pieces;
 3. queries run exactly as on one host — the distributed kNN merge is
    topology-blind (per-shard top-k is local; only (key, index) pairs cross
-   ICI/DCN).
+   devices).
 
 Smoke-tested by ``tests/test_multihost.py``: two local CPU processes, four
 virtual devices each, global 8-device mesh, distributed kNN parity with a
@@ -52,8 +51,7 @@ def initialize(
 ) -> None:
     """Initialize the multi-process JAX runtime (idempotent).
 
-    On TPU pods all arguments auto-discover from the metadata server; on
-    other topologies pass them explicitly or via the standard env vars
+    Pass the arguments explicitly or via the standard env vars
     (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
     ``JAX_PROCESS_ID``). A no-op when already initialized or when no
     multi-process configuration is present (single-host use).

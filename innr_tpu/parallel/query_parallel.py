@@ -4,7 +4,7 @@ the corpus.
 The complement of :class:`~innr_tpu.parallel.sharded.ShardedCorpus`
 (which shards corpus rows): when the corpus fits in one device's HBM but
 the query stream is large, the right mesh decomposition is data-parallel
-over queries — each device runs the fused multi-query kernel on its query
+over queries — each device runs the multi-query scan on its query
 slice against its local corpus replica, and results concatenate with NO
 collective at all (each query's top-k is complete locally). Throughput
 scales linearly with mesh size; there is no merge step to pay.
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from innr_tpu import scan
 from innr_tpu.parallel._scan import (
     decode_keys,
     local_scan_keys,
@@ -30,61 +31,62 @@ from innr_tpu.parallel._scan import (
 )
 import numpy as np
 from innr_tpu.parallel.sharded import AXIS, default_mesh
+from innr_tpu.route import current_route
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.padding import pad_axis_to, round_up
 
 __all__ = ["QueryParallelIndex"]
 
 
-def _local_scan(qs, rows, norms2, inv_norms, k, mode, use_fused):
+def _local_scan(qs, rows, norms2, inv_norms, k, mode, route):
     """Per-device body: this device's (Qs, D) query slice against the full
     replicated corpus. Shared scan body
     (:func:`innr_tpu.parallel._scan.local_scan_keys`) with base 0 and no
     padded rows; keys decode locally since there is no merge step."""
     aux = {"dot": None, "l2": norms2, "cosine": inv_norms}[mode]
     keys, idx = local_scan_keys(
-        qs, rows, aux, rows.shape[0], k, mode, use_fused, base=0
+        qs, rows, aux, rows.shape[0], k, mode, 0, route=route
     )
-    return decode_keys(keys, mode, use_fused, qs), idx
+    return decode_keys(keys, mode, qs, rows.shape[0], route), idx
 
 
-def _local_scan_filtered(qs, rows, norms2, mask, k, use_fused):
+def _local_scan_filtered(qs, rows, norms2, mask, k, route):
     keys, idx = local_scan_keys_filtered(
-        qs, rows, norms2, mask, rows.shape[0], k, use_fused, base=0
+        qs, rows, norms2, mask, rows.shape[0], k, 0, route=route
     )
-    return decode_keys(keys, "l2", use_fused, qs), idx
+    return decode_keys(keys, "l2m", qs, rows.shape[0], route), idx
 
 
-@partial(jax.jit, static_argnames=("k", "mesh", "use_fused"))
-def _qp_knn_filtered(qs_sharded, rows, norms2, mask, k, mesh, use_fused):
-    body = partial(_local_scan_filtered, k=k, use_fused=use_fused)
+@partial(jax.jit, static_argnames=("k", "mesh", "route"))
+def _qp_knn_filtered(qs_sharded, rows, norms2, mask, k, mesh, route):
+    body = partial(_local_scan_filtered, k=k, route=route)
     return jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(P(AXIS, None), P(), P(), P()),
         out_specs=(P(AXIS, None), P(AXIS, None)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )(qs_sharded, rows, norms2, mask)
 
 
-@partial(jax.jit, static_argnames=("k", "mode", "mesh", "use_fused"))
-def _qp_knn(qs_sharded, rows, norms2, inv_norms, k, mode, mesh, use_fused):
-    body = partial(_local_scan, k=k, mode=mode, use_fused=use_fused)
+@partial(jax.jit, static_argnames=("k", "mode", "mesh", "route"))
+def _qp_knn(qs_sharded, rows, norms2, inv_norms, k, mode, mesh, route):
+    body = partial(_local_scan, k=k, mode=mode, route=route)
     return jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(P(AXIS, None), P(), P(), P()),
         out_specs=(P(AXIS, None), P(AXIS, None)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )(qs_sharded, rows, norms2, inv_norms)
 
 
 class QueryParallelIndex:
     """A replicated (N, D) corpus serving query batches sharded across the
     mesh. ``knn_dot`` / ``knn_l2`` / ``knn_cosine`` accept (Q, D) batches;
-    each device scans its Q/num_devices slice with the fused multi-query
-    kernel. Results are bit-identical to the single-chip scan (same kernel,
-    same corpus)."""
+    each device scans its Q/num_devices slice with the dense scan of
+    :mod:`innr_tpu.scan`. Results equal the single-device scan (same
+    route, same corpus)."""
 
     def __init__(self, rows, mesh: Mesh | None = None, dtype=jnp.float32):
         if dtype not in (jnp.float32, jnp.bfloat16):
@@ -105,19 +107,14 @@ class QueryParallelIndex:
         pattern): dot-only workloads never pay the reduction or the
         replicated HBM."""
         if self._norms2 is None:
-            r = self.rows.astype(jnp.float32)
             self._norms2 = jax.device_put(
-                jax.jit(lambda x: jnp.sum(x * x, axis=1))(r),
-                NamedSharding(self.mesh, P()),
-            )
+                scan.sq_norms(self.rows), NamedSharding(self.mesh, P()))
         return self._norms2
 
     def _aux_inv_norms(self):
         if self._inv_norms is None:
-            from innr_tpu.kernels.knn import inv_norms
-
             self._inv_norms = jax.device_put(
-                jax.jit(inv_norms)(self.rows),
+                scan.inv_norms(self.rows),
                 NamedSharding(self.mesh, P()),
             )
         return self._inv_norms
@@ -158,25 +155,19 @@ class QueryParallelIndex:
         q_pad = round_up(max(n_q, n_devices), n_devices)
         qs_p = pad_axis_to(qs, 0, q_pad)
         if mode == "cosine":
-            from innr_tpu.kernels.knn import _unit_queries
-
-            qs_p = _unit_queries(qs_p)
+            qs_p = scan.unit_queries(qs_p)
         qs_sharded = jax.device_put(
             qs_p, NamedSharding(self.mesh, P(AXIS, None))
         )
-        from innr_tpu import config
-
-        use_fused = (
-            not config.reference_forced()
-            and n >= config.MIN_ROWS_PALLAS
-        )
+        route = current_route("dense", n, k, self.rows.dtype,
+                              q_pad // n_devices, self.dimension)
         # Only the mode's aux stream is materialized; the other leg gets a
         # tiny dummy (the static mode branch never traces a use of it).
         dummy = jnp.zeros((1,), jnp.float32)
         norms2 = self._aux_norms2() if mode == "l2" else dummy
         inv = self._aux_inv_norms() if mode == "cosine" else dummy
         vals, idx = _qp_knn(
-            qs_sharded, self.rows, norms2, inv, k, mode, self.mesh, use_fused,
+            qs_sharded, self.rows, norms2, inv, k, mode, self.mesh, route,
         )
         return vals[:n_q], idx[:n_q]
 
@@ -227,14 +218,10 @@ class QueryParallelIndex:
         mask_rep = jax.device_put(
             mask.astype(np.float32), NamedSharding(self.mesh, P())
         )
-        from innr_tpu import config
-
-        use_fused = (
-            not config.reference_forced()
-            and n >= config.MIN_ROWS_PALLAS
-        )
+        route = current_route("dense", n, k, self.rows.dtype,
+                              q_pad // n_devices, self.dimension)
         vals, idx = _qp_knn_filtered(
             qs_sharded, self.rows, self._aux_norms2(), mask_rep, k,
-            self.mesh, use_fused,
+            self.mesh, route,
         )
         return vals[:n_q], idx[:n_q]

@@ -3,12 +3,11 @@
 Corpus rows are sharded along the vector axis over a 1-D device mesh
 (axis ``"shards"``). A kNN query runs as:
 
-1. per-shard local scan under ``shard_map`` — the fused Pallas streaming
-   score+top-k kernel when the shard is large enough (one corpus HBM read,
-   no (Q, N) score materialization; the same kernel the single-chip path
-   uses), else an MXU matmul + total-order top-k;
+1. per-shard local scan under ``shard_map`` — the same dense scan the
+   single-device path runs (:func:`innr_tpu.scan.knn_keys`, on the route
+   :mod:`innr_tpu.route` picks for the shard);
 2. all-gather of the per-shard (raw int32 total-order key, global index)
-   top-k pairs — k values per device, a few hundred bytes over ICI;
+   top-k pairs — k values per device, a few hundred bytes;
 3. final top-k merge over the ``num_devices * k`` candidates and key
    decode back to f32 scores.
 
@@ -17,9 +16,9 @@ single-chip path, so the distributed result is bit-identical to a
 single-chip scan of the concatenated corpus.
 
 Padding: the row axis is padded to a multiple of the mesh size; padded
-rows are masked to the INT32_MIN sentinel key. The fused path fetches
-``k + pad_count`` local candidates so padded rows (which the kernel cannot
-see as padding) can never displace genuine winners.
+rows are masked to the INT32_MIN sentinel key after the local top-k, and
+each shard fetches ``k + pad_count`` local candidates so padded rows can
+never displace genuine winners.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from innr_tpu.route import current_route
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.padding import pad_axis_to, round_up
 
@@ -54,15 +54,15 @@ def default_mesh(devices=None) -> Mesh:
     return Mesh(devices.reshape(-1), (AXIS,))
 
 
+from innr_tpu import scan
 from innr_tpu.parallel._scan import (
-    _invert_total_key,
     decode_keys,
     local_scan_keys,
     local_scan_keys_filtered,
 )
 
 
-def _local_topk(qs, rows_shard, aux_shard, n_total, k, mode, use_fused):
+def _local_topk(qs, rows_shard, aux_shard, n_total, k, mode, route):
     """Per-shard body under shard_map: (Q, shard) local scores -> per-query
     local top-k raw total-order keys (larger = better, every mode) with
     global indices; padded rows masked out. ``aux_shard``: per-row squared
@@ -71,65 +71,43 @@ def _local_topk(qs, rows_shard, aux_shard, n_total, k, mode, use_fused):
     :func:`innr_tpu.parallel._scan.local_scan_keys`."""
     base = jax.lax.axis_index(AXIS) * rows_shard.shape[0]
     return local_scan_keys(
-        qs, rows_shard, aux_shard, n_total, k, mode, use_fused, base
+        qs, rows_shard, aux_shard, n_total, k, mode, base, route=route
     )
 
 
 def _local_topk_pruned(qs, rows_shard, aux_shard, cent, rad, cnt, n_total,
-                       k_local, k, mode, tile_n):
+                       k, mode, tile_n, route):
     """Per-shard tile-skip body: plan survivors over THIS shard's tile
-    summaries, run the pruned scan locally, emit raw keys + global
-    indices (the same contract as :func:`_local_topk`)."""
-    from innr_tpu.kernels import should_interpret
-    from innr_tpu.kernels.pruned_knn import routed_raw
-    from innr_tpu.prune import plan_survivors
-
+    summaries and scan only those tiles (:func:`innr_tpu.scan.
+    planned_knn_keys`); same key contract as :func:`_local_topk`. The
+    summaries count padded rows, and ``k`` includes the pad count, so at
+    least the requested number of real rows beat the plan's threshold."""
     base = jax.lax.axis_index(AXIS) * rows_shard.shape[0]
-    plan_mode = "dot" if mode == "cosine" else mode
-    fast = k_local <= tile_n
-    if rows_shard.dtype == jnp.bfloat16:
-        # The pruned scan scores bf16(q) . r; plan against the SAME
-        # rounded query so the tile bounds cover the kernel's actual
-        # scores (see kernels/pruned_knn.py::_pruned_run — the f32
-        # slack cannot absorb the 2^-9 query-rounding perturbation).
-        qs_plan = qs.astype(jnp.bfloat16).astype(jnp.float32)
-    else:
-        qs_plan = qs
-    order, n_surv = plan_survivors(
-        qs_plan, cent, rad, cnt, k_local, plan_mode, fast=fast
-    )
-    # Same self-routing as the single-chip path (kernels/pruned_knn.py):
-    # shards whose local plan elides too little run the plain full scan.
-    # Per-shard and device-side, so an incoherent shard can route to the
-    # full kernel while a clustered one prunes — no host sync either way.
-    keys, lidx = routed_raw(
-        qs, rows_shard, aux_shard, order, n_surv, k_local, mode, tile_n,
-        dynamic=not should_interpret(),
-    )
+    keys, lidx = scan.planned_knn_keys(qs, rows_shard, aux_shard, cent, rad,
+                                       cnt, k, mode, tile_n, route)
     gidx = base + lidx
-    keys = jnp.where(gidx < n_total, keys, _INT_MIN)
-    return keys, gidx
+    return jnp.where(gidx < n_total, keys, _INT_MIN), gidx
 
 
 @partial(
     jax.jit,
-    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "tile_n"),
+    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "tile_n",
+                     "route", "shard_rows"),
 )
 def _sharded_knn_pruned(
     qs, rows_sharded, aux_sharded, cent, rad, cnt, k: int, k_local: int,
-    mode: str, n_total: int, mesh: Mesh, tile_n: int,
+    mode: str, n_total: int, mesh: Mesh, tile_n: int, route: str,
+    shard_rows: int,
 ):
     single = qs.ndim == 1
     if single:
         qs = qs[None, :]
     if mode == "cosine":
-        from innr_tpu.kernels.knn import _unit_queries
-
-        qs = _unit_queries(qs)
+        qs = scan.unit_queries(qs)
     has_aux = mode != "dot"
     body = partial(
-        _local_topk_pruned, n_total=n_total, k_local=k_local, k=k,
-        mode=mode, tile_n=tile_n,
+        _local_topk_pruned, n_total=n_total, k=k_local, mode=mode,
+        tile_n=tile_n, route=route,
     )
     if not has_aux:
         body = partial(
@@ -143,7 +121,7 @@ def _sharded_knn_pruned(
         + ((P(AXIS),) if has_aux else ())
         + (P(AXIS, None), P(AXIS), P(AXIS)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     args = (qs, rows_sharded) + ((aux_sharded,) if has_aux else ()) + (
         cent, rad, cnt,
@@ -151,30 +129,29 @@ def _sharded_knn_pruned(
     keys, gidx = local(*args)
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    vals = decode_keys(merged_keys, mode, True, qs)
+    vals = decode_keys(merged_keys, mode, qs, shard_rows, route)
     if single:
         return vals[0], idx[0]
     return vals, idx
 
 
 @partial(
-    jax.jit, static_argnames=("k", "k_local", "mode", "n_total", "mesh", "use_fused")
+    jax.jit,
+    static_argnames=("k", "k_local", "mode", "n_total", "mesh", "route",
+                     "shard_rows"),
 )
 def _sharded_knn(
     qs, rows_sharded, aux_sharded, k: int, k_local: int, mode: str,
-    n_total: int, mesh: Mesh, use_fused: bool,
+    n_total: int, mesh: Mesh, route: str, shard_rows: int,
 ):
     single = qs.ndim == 1
     if single:
         qs = qs[None, :]
     if mode == "cosine":
-        from innr_tpu.kernels.knn import _unit_queries
-
-        qs = _unit_queries(qs)
+        qs = scan.unit_queries(qs)
     has_aux = mode != "dot"
     body = partial(
-        _local_topk, n_total=n_total, k=k_local, mode=mode,
-        use_fused=use_fused,
+        _local_topk, n_total=n_total, k=k_local, mode=mode, route=route,
     )
     if not has_aux:
         body = partial(lambda q_, r_, f_: f_(q_, r_, None), f_=body)
@@ -183,59 +160,56 @@ def _sharded_knn(
         mesh=mesh,
         in_specs=(P(), P(AXIS, None)) + ((P(AXIS),) if has_aux else ()),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     args = (qs, rows_sharded) + ((aux_sharded,) if has_aux else ())
     keys, gidx = local(*args)  # (Q, num_devices * k_local) each
     # Final merge over the gathered candidates (tiny).
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    vals = decode_keys(merged_keys, mode, use_fused, qs)
+    vals = decode_keys(merged_keys, mode, qs, shard_rows, route)
     if single:
         return vals[0], idx[0]
     return vals, idx
 
 
-def _local_topk_filtered(qs, rows_shard, norms_shard, mask_shard, n_total, k, use_fused):
+def _local_topk_filtered(qs, rows_shard, norms_shard, mask_shard, n_total, k,
+                         route):
     """Per-shard body for predicate-pushdown L2 kNN: non-passing rows can
     never win (reference src/batch.rs:842-845). ``mask_shard``: (shard,)
     f32 0/1 predicate over this shard's rows (padded rows are 0). Shared
     body: :func:`innr_tpu.parallel._scan.local_scan_keys_filtered`."""
     base = jax.lax.axis_index(AXIS) * rows_shard.shape[0]
     return local_scan_keys_filtered(
-        qs, rows_shard, norms_shard, mask_shard, n_total, k, use_fused, base
+        qs, rows_shard, norms_shard, mask_shard, n_total, k, base,
+        route=route,
     )
 
 
 @partial(
-    jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused")
+    jax.jit,
+    static_argnames=("k", "k_local", "n_total", "mesh", "route", "shard_rows"),
 )
 def _sharded_knn_filtered(
     qs, rows_sharded, norms_sharded, mask_sharded, k: int, k_local: int,
-    n_total: int, mesh: Mesh, use_fused: bool,
+    n_total: int, mesh: Mesh, route: str, shard_rows: int,
 ):
     single = qs.ndim == 1
     if single:
         qs = qs[None, :]
     local = jax.shard_map(
         partial(
-            _local_topk_filtered, n_total=n_total, k=k_local,
-            use_fused=use_fused,
+            _local_topk_filtered, n_total=n_total, k=k_local, route=route,
         ),
         mesh=mesh,
         in_specs=(P(), P(AXIS, None), P(AXIS), P(AXIS)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     keys, gidx = local(qs, rows_sharded, norms_sharded, mask_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    merged_keys = ~merged_keys
-    vals = _invert_total_key(merged_keys)
-    if use_fused:
-        # Fused keys come from the MXU decomposition without ||q||^2.
-        qq = jnp.sum(qs * qs, axis=1, keepdims=True)
-        vals = jnp.maximum(vals + qq, 0.0)
+    vals = decode_keys(merged_keys, "l2m", qs, shard_rows, route)
     if single:
         return vals[0], idx[0]
     return vals, idx
@@ -245,8 +219,8 @@ class ShardedCorpus:
     """An (N, D) corpus sharded row-wise across a device mesh.
 
     The multi-chip analog of :class:`innr_tpu.batch.VerticalBatch`: rows
-    live distributed in per-device HBM; queries broadcast; results merge
-    over ICI. ``num_vectors``/``dimension`` report the true (unpadded)
+    live distributed in per-device memory; queries broadcast; results
+    merge across devices. ``num_vectors``/``dimension`` report the true (unpadded)
     corpus shape.
     """
 
@@ -274,10 +248,10 @@ class ShardedCorpus:
     def set_prune_tile_n(self, tile_n) -> "ShardedCorpus":
         """Override the per-shard pruning tile height (see
         ``VerticalBatch.set_prune_tile_n``): corpora whose natural
-        cluster size is smaller than the default VMEM-budget tile cannot
-        prune; a matching tile height restores the win. Exactness never
-        depends on it. ``None`` resets; clears cached summaries."""
-        from innr_tpu.kernels.pruned_knn import pruned_tile_n
+        cluster size is smaller than the default tile cannot prune; a
+        matching tile height restores the planner's elision. Exactness
+        never depends on it. ``None`` resets; clears cached summaries."""
+        from innr_tpu.prune import default_tile_n
 
         if tile_n is not None:
             tile_n = int(tile_n)
@@ -285,25 +259,25 @@ class ShardedCorpus:
                 raise ContractError(
                     "set_prune_tile_n: tile_n must be positive or None"
                 )
-            cap = pruned_tile_n(self.shard_rows, self.dimension,
-                                self.rows.dtype)
+            cap = default_tile_n(self.shard_rows, self.dimension,
+                                 self.rows.dtype)
             tile_n = min(round_up(tile_n, 128), cap)
         self._prune_tile_n = tile_n
         self._summaries = {}
         return self
 
     def tile_summary(self, normalized: bool = False):
-        """Per-shard tile summaries for distributed tile-skip pruning:
-        each device summarizes its OWN rows under shard_map (no gather),
+        """Per-shard tile summaries for the tile-skip planner
+        (:mod:`innr_tpu.prune`): each device summarizes its OWN rows under
+        shard_map (no gather),
         and the arrays stay sharded alongside the corpus. Returns
         ``(centroids, radii, counts, tile_n)`` with the leading tile axis
         sharded over the mesh."""
         key = bool(normalized)
         if key not in self._summaries:
-            from innr_tpu.kernels.pruned_knn import pruned_tile_n
-            from innr_tpu.prune import _summarize
+            from innr_tpu.prune import _summarize, default_tile_n
 
-            tile_n = self._prune_tile_n or pruned_tile_n(
+            tile_n = self._prune_tile_n or default_tile_n(
                 self.shard_rows, self.dimension, self.rows.dtype
             )
             body = partial(_summarize, tile_n=tile_n, normalized=normalized)
@@ -324,17 +298,11 @@ class ShardedCorpus:
         rows (each device reduces its own shard — no gather)."""
         if mode == "l2":
             if self._norms2 is None:
-                self._norms2 = jax.jit(
-                    lambda r: jnp.sum(
-                        r.astype(jnp.float32) * r.astype(jnp.float32), axis=1
-                    )
-                )(self.rows)
+                self._norms2 = scan.sq_norms(self.rows)
             return self._norms2
         if mode == "cosine":
             if self._inv_norms is None:
-                from innr_tpu.kernels.knn import inv_norms
-
-                self._inv_norms = jax.jit(inv_norms)(self.rows)
+                self._inv_norms = scan.inv_norms(self.rows)
             return self._inv_norms
         return None
 
@@ -411,9 +379,9 @@ class ShardedCorpus:
 
     def knn_dot(self, query, k: int, prune: bool = False):
         """Distributed MIPS top-k: returns (scores, global indices),
-        scores descending (total order). ``prune=True``: each shard runs
-        the tile-skip scan over its own tile summaries — exact results,
-        loser-only HBM tiles never read on any device."""
+        scores descending (total order). ``prune=True``: on the Triton
+        route each shard scans only the tiles its own summaries cannot
+        rule out — exact results; other routes run the full scan."""
         return sharded_knn_dot(query, self, k, prune=prune)
 
     def knn_l2(self, query, k: int, prune: bool = False):
@@ -455,26 +423,18 @@ def _empty(q):
     return jnp.zeros((0,), jnp.float32), jnp.zeros((0,), jnp.int32)
 
 
-def _plan_local_k(corpus: ShardedCorpus, k: int) -> tuple[int, bool]:
-    """Decide (k_local, use_fused) for a distributed scan.
-
-    The fused path must over-fetch by the pad-row count (the kernel cannot
-    distinguish padded rows; extra candidates guarantee k valid ones
-    survive the post-mask). Both paths clamp to the shard height.
-    """
-    from innr_tpu import config
-
+def _plan_local_k(corpus: ShardedCorpus, k: int) -> int:
+    """Local candidates per shard: ``k`` plus the pad-row count (padding
+    is masked after the local top-k, so the over-fetch guarantees k real
+    candidates survive), clamped to the shard height."""
     pad = corpus.n_pad - corpus.n_true
-    shard_rows = corpus.shard_rows
-    # No k cap: the fused kernel runs exclusion-bounded multi-pass scans
-    # past its single-pass VMEM budget (kernels/knn.py::_fused_knn_multi),
-    # so over-fetching by the pad count can never silently unfuse.
-    use_fused = (
-        not config.reference_forced()
-        and shard_rows >= config.MIN_ROWS_PALLAS
-    )
-    k_local = min(k + pad, shard_rows) if use_fused else min(k, shard_rows)
-    return k_local, use_fused
+    return min(k + pad, corpus.shard_rows)
+
+
+def _route(q, corpus: ShardedCorpus, k_local: int) -> str:
+    n_q = int(q.shape[0]) if q.ndim == 2 else 1
+    return current_route("dense", corpus.shard_rows, k_local,
+                         corpus.rows.dtype, n_q, corpus.dimension)
 
 
 def _run(query, corpus: ShardedCorpus, k: int, mode: str, op: str,
@@ -482,22 +442,23 @@ def _run(query, corpus: ShardedCorpus, k: int, mode: str, op: str,
     q, k = _check(query, corpus, k, op)
     if k == 0:
         return _empty(q)
-    k_local, use_fused = _plan_local_k(corpus, k)
-    if prune and use_fused:
-        from innr_tpu.kernels.knn import single_pass_k
+    k_local = _plan_local_k(corpus, k)
+    route = _route(q, corpus, k_local)
+    if prune and route == "triton":
+        from innr_tpu.kernels.triton_knn import SUB_N
 
-        n_q = int(q.shape[0]) if q.ndim == 2 else 1
-        if k_local <= single_pass_k(n_q):
-            cent, rad, cnt, tile_n = corpus.tile_summary(
-                normalized=(mode == "cosine")
-            )
+        cent, rad, cnt, tile_n = corpus.tile_summary(
+            normalized=(mode == "cosine")
+        )
+        if tile_n % SUB_N == 0:
             return _sharded_knn_pruned(
                 q, corpus.rows, corpus._aux(mode), cent, rad, cnt, k,
-                k_local, mode, corpus.n_true, corpus.mesh, tile_n,
+                k_local, mode, corpus.n_true, corpus.mesh, tile_n, route,
+                corpus.shard_rows,
             )
     return _sharded_knn(
         q, corpus.rows, corpus._aux(mode), k, k_local, mode, corpus.n_true,
-        corpus.mesh, use_fused,
+        corpus.mesh, route, corpus.shard_rows,
     )
 
 
@@ -529,7 +490,7 @@ def sharded_knn_filtered(query, corpus: ShardedCorpus, k: int, predicate):
     pushed down into each shard's streaming scan.
 
     ``predicate``: (N,) boolean mask over *global* row indices (the
-    TPU-native form — it shards alongside the rows), or a host callable
+    device-native form — it shards alongside the rows), or a host callable
     ``index -> bool``. Returns at most ``min(k, num_passing)`` results per
     query; every returned index passes the predicate.
     """
@@ -550,11 +511,9 @@ def sharded_knn_filtered(query, corpus: ShardedCorpus, k: int, predicate):
     mask_sharded = jax.device_put(
         mask_f, NamedSharding(corpus.mesh, P(AXIS))
     )
-    k_local, use_fused = _plan_local_k(corpus, k)
-    # Non-passing and padded rows are already masked to INT_MIN by the
-    # predicate stream, so the fused over-fetch only needs to cover ties
-    # with pad rows — keep the shared plan (it clamps to the shard height).
+    k_local = _plan_local_k(corpus, k)
     return _sharded_knn_filtered(
         q, corpus.rows, corpus._aux("l2"), mask_sharded, k, k_local,
-        corpus.n_true, corpus.mesh, use_fused,
+        corpus.n_true, corpus.mesh, _route(q, corpus, k_local),
+        corpus.shard_rows,
     )

@@ -1,11 +1,11 @@
 """Distributed MaxSim (late-interaction) retrieval over a sharded
 multi-vector corpus.
 
-Docs shard row-wise as (N, Td, D); each device streams its local docs
-through the fused MaxSim scorer (never materializing the interaction
-tensor), selects its local top-k with total-order keys, and the
-(score, global index) candidates merge over ICI — ColBERT-style retrieval
-at mesh scale (reference analog: ``src/maxsim.rs`` is single-pair only).
+Docs shard row-wise as (N, Td, D); each device scores its local docs with
+the batched MaxSim einsum (:func:`innr_tpu.ops.maxsim.batch_maxsim`),
+selects its local top-k with total-order keys, and the (score, global
+index) candidates merge across devices — ColBERT-style retrieval at mesh
+scale (reference analog: ``src/maxsim.rs`` is single-pair only).
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from innr_tpu.parallel.sharded import AXIS, _invert_total_key, default_mesh
+from innr_tpu.parallel.sharded import AXIS, default_mesh
+from innr_tpu.scan import invert_total_key
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.order import total_order_key_f32
 from innr_tpu.utils.padding import pad_axis_to, round_up
@@ -26,19 +27,14 @@ __all__ = ["ShardedMaxSimCorpus"]
 _INT_MIN = jnp.iinfo(jnp.int32).min
 
 
-def _local_maxsim_topk(q_tokens, docs_shard, mask_shard, n_total, k, use_fused):
+def _local_maxsim_topk(q_tokens, docs_shard, mask_shard, n_total, k):
     """Per-shard body. ``q_tokens``: (B, Tq, D) query batch — all queries
     share the shard's doc-token read."""
     shard_rows = docs_shard.shape[0]
     base = jax.lax.axis_index(AXIS) * shard_rows
-    if use_fused:
-        from innr_tpu.kernels.maxsim_kernel import fused_maxsim_scores_batch
+    from innr_tpu.ops.maxsim import batch_maxsim
 
-        scores = fused_maxsim_scores_batch(q_tokens, docs_shard, mask_shard)
-    else:
-        from innr_tpu.ops.maxsim import batch_maxsim
-
-        scores = batch_maxsim(q_tokens, docs_shard, doc_mask=mask_shard)
+    scores = batch_maxsim(q_tokens, docs_shard, doc_mask=mask_shard)
     keys = total_order_key_f32(scores)  # (B, shard)
     gidx_row = base + jnp.arange(shard_rows, dtype=jnp.int32)
     keys = jnp.where(gidx_row[None, :] < n_total, keys, _INT_MIN)
@@ -46,26 +42,23 @@ def _local_maxsim_topk(q_tokens, docs_shard, mask_shard, n_total, k, use_fused):
     return top_keys, gidx_row[tidx]
 
 
-@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused"))
+@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh"))
 def _sharded_maxsim_knn(
     q_tokens, docs_sharded, mask_sharded, k: int, k_local: int, n_total: int,
-    mesh: Mesh, use_fused: bool,
+    mesh: Mesh,
 ):
     single = q_tokens.ndim == 2
     if single:
         q_tokens = q_tokens[None]
     local = jax.shard_map(
-        partial(
-            _local_maxsim_topk, n_total=n_total, k=k_local, use_fused=use_fused
-        ),
+        partial(_local_maxsim_topk, n_total=n_total, k=k_local),
         mesh=mesh,
         in_specs=(P(), P(AXIS, None, None), P(AXIS, None)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
     )
     keys, gidx = local(q_tokens, docs_sharded, mask_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
-    vals = _invert_total_key(merged_keys)
+    vals = invert_total_key(merged_keys)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
     if single:
         return vals[0], idx[0]
@@ -137,15 +130,8 @@ class ShardedMaxSimCorpus:
                 )
             return jnp.zeros((0,), jnp.float32), jnp.zeros((0,), jnp.int32)
         k = min(int(k), self.n_true)
-        from innr_tpu import config
-
         shard_rows = self.n_pad // int(self.mesh.devices.size)
         k_local = min(k, shard_rows)
-        use_fused = (
-            not config.reference_forced()
-            and shard_rows >= max(config.MIN_ROWS_PALLAS // 16, 64)
-        )
         return _sharded_maxsim_knn(
             q, self.docs, self.doc_mask, k, k_local, self.n_true, self.mesh,
-            use_fused,
         )

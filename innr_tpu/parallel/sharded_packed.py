@@ -1,15 +1,13 @@
 """Distributed search over sharded packed (binary / ternary) corpora.
 
 Extends the distributed kNN merge to bit-packed corpora: packed word
-planes shard **word-major** — ``(W, N)`` uint32 with the row axis sharded —
-so each device's local scan is exactly the layout the fused Pallas packed
-kernels stream (lane = corpus vector). 32x (binary) / 16x (ternary) less
-HBM and ICI traffic than the f32 path for the same corpus.
+planes shard **word-major** — ``(W, N)`` uint32 with the row axis sharded.
+32x (binary) / 16x (ternary) less device memory and interconnect traffic
+than the f32 path for the same corpus.
 
-Local scan: the fused XOR+popcount (binary) or sign-agreement (ternary)
-streaming top-k kernel when the shard is large enough, else a jnp
-popcount reduction. Selection keys are the small integer counts
-themselves, so per-shard results merge exactly.
+Local scan: one XLA XOR/AND + popcount reduction over the word axis, then
+``top_k``. Selection keys are the small integer counts themselves, so
+per-shard results merge exactly.
 """
 
 from __future__ import annotations
@@ -31,35 +29,17 @@ __all__ = ["ShardedPackedBinary", "ShardedPackedTernary"]
 _INT_MIN = jnp.iinfo(jnp.int32).min
 
 
-def _plan_packed(n_pad: int, n_true: int, n_devices: int, k: int,
-                 n_q: int = 1):
-    from innr_tpu import config
-    from innr_tpu.kernels.knn import single_pass_k
-
-    pad = n_pad - n_true
-    shard_cols = n_pad // n_devices
-    use_fused = (
-        not config.reference_forced()
-        and shard_cols >= config.MIN_ROWS_PALLAS
-        and k + pad <= single_pass_k(n_q)
-    )
-    k_local = min(k + pad, shard_cols) if use_fused else min(k, shard_cols)
-    return k_local, use_fused
+def _plan_packed(n_pad: int, n_devices: int, k: int) -> int:
+    """Local candidates per shard: padding is masked before the local
+    top-k, so ``k`` clamped to the shard width suffices."""
+    return min(k, n_pad // n_devices)
 
 
-def _local_binary_topk(q_words, words_t_shard, n_total, k, use_fused):
+def _local_binary_topk(q_words, words_t_shard, n_total, k):
     """Per-shard body: (Q, W) queries x (W, shard) word-major tile ->
     per-query local top-k keys (-count: larger = better) + global indices."""
     shard_cols = words_t_shard.shape[1]
     base = jax.lax.axis_index(AXIS) * shard_cols
-    if use_fused:
-        from innr_tpu.kernels.packed_knn import fused_binary_knn_batch
-
-        counts, lidx = fused_binary_knn_batch(q_words, words_t_shard, k)
-        keys = -counts.astype(jnp.int32)
-        gidx = base + lidx
-        keys = jnp.where(gidx < n_total, keys, _INT_MIN)
-        return keys, gidx
     counts = jnp.sum(
         jax.lax.population_count(
             words_t_shard[None, :, :] ^ q_words[:, :, None]
@@ -73,22 +53,18 @@ def _local_binary_topk(q_words, words_t_shard, n_total, k, use_fused):
     return top_keys, gidx_row[tidx]
 
 
-@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused"))
+@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh"))
 def _sharded_binary_knn(
     q_words, words_sharded, k: int, k_local: int, n_total: int, mesh: Mesh,
-    use_fused: bool,
 ):
     single = q_words.ndim == 1
     if single:
         q_words = q_words[None, :]
     local = jax.shard_map(
-        partial(
-            _local_binary_topk, n_total=n_total, k=k_local, use_fused=use_fused
-        ),
+        partial(_local_binary_topk, n_total=n_total, k=k_local),
         mesh=mesh,
         in_specs=(P(), P(None, AXIS)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
     )
     keys, gidx = local(q_words, words_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
@@ -116,7 +92,7 @@ class ShardedPackedBinary:
         self._dimension = int(dimension)
         self.n_pad = round_up(max(self.n_true, n_devices), n_devices)
         words = pad_axis_to(words, 0, self.n_pad)
-        # Word-major (W, N): the fused packed kernel's streaming layout.
+        # Word-major (W, N), row axis sharded.
         self.words_t = jax.device_put(
             words.T, NamedSharding(self.mesh, P(None, AXIS))
         )
@@ -184,12 +160,9 @@ class ShardedPackedBinary:
         if k <= 0 or self.n_true == 0:
             return jnp.zeros((0,), jnp.uint32), jnp.zeros((0,), jnp.int32)
         k = min(int(k), self.n_true)
-        k_local, use_fused = _plan_packed(
-            self.n_pad, self.n_true, int(self.mesh.devices.size), k
-        )
+        k_local = _plan_packed(self.n_pad, int(self.mesh.devices.size), k)
         return _sharded_binary_knn(
             query.words, self.words_t, k, k_local, self.n_true, self.mesh,
-            use_fused,
         )
 
     def knn_batch(self, q_words, k: int):
@@ -206,24 +179,15 @@ class ShardedPackedBinary:
         if k <= 0 or self.n_true == 0:
             return jnp.zeros((n_q, 0), jnp.uint32), jnp.zeros((n_q, 0), jnp.int32)
         k = min(int(k), self.n_true)
-        k_local, use_fused = _plan_packed(
-            self.n_pad, self.n_true, int(self.mesh.devices.size), k, n_q
-        )
+        k_local = _plan_packed(self.n_pad, int(self.mesh.devices.size), k)
         return _sharded_binary_knn(
-            q_words, self.words_t, k, k_local, self.n_true, self.mesh, use_fused
+            q_words, self.words_t, k, k_local, self.n_true, self.mesh
         )
 
 
-def _local_ternary_topk(qp, qn, pos_shard, neg_shard, n_total, k, use_fused):
+def _local_ternary_topk(qp, qn, pos_shard, neg_shard, n_total, k):
     shard_cols = pos_shard.shape[1]
     base = jax.lax.axis_index(AXIS) * shard_cols
-    if use_fused:
-        from innr_tpu.kernels.packed_knn import fused_ternary_knn_batch
-
-        dots, lidx = fused_ternary_knn_batch(qp, qn, pos_shard, neg_shard, k)
-        gidx = base + lidx
-        keys = jnp.where(gidx < n_total, dots, _INT_MIN)
-        return keys, gidx
     same = (pos_shard[None] & qp[:, :, None]) | (neg_shard[None] & qn[:, :, None])
     diff = (pos_shard[None] & qn[:, :, None]) | (neg_shard[None] & qp[:, :, None])
     dots = jnp.sum(
@@ -237,22 +201,19 @@ def _local_ternary_topk(qp, qn, pos_shard, neg_shard, n_total, k, use_fused):
     return top_keys, gidx_row[tidx]
 
 
-@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused"))
+@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh"))
 def _sharded_ternary_knn(
     qp, qn, pos_sharded, neg_sharded, k: int, k_local: int, n_total: int,
-    mesh: Mesh, use_fused: bool,
+    mesh: Mesh,
 ):
     single = qp.ndim == 1
     if single:
         qp, qn = qp[None, :], qn[None, :]
     local = jax.shard_map(
-        partial(
-            _local_ternary_topk, n_total=n_total, k=k_local, use_fused=use_fused
-        ),
+        partial(_local_ternary_topk, n_total=n_total, k=k_local),
         mesh=mesh,
         in_specs=(P(), P(), P(None, AXIS), P(None, AXIS)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
     )
     keys, gidx = local(qp, qn, pos_sharded, neg_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
@@ -319,12 +280,10 @@ class ShardedPackedTernary:
         if k <= 0 or self.n_true == 0:
             return jnp.zeros((0,), jnp.int32), jnp.zeros((0,), jnp.int32)
         k = min(int(k), self.n_true)
-        k_local, use_fused = _plan_packed(
-            self.n_pad, self.n_true, int(self.mesh.devices.size), k
-        )
+        k_local = _plan_packed(self.n_pad, int(self.mesh.devices.size), k)
         return _sharded_ternary_knn(
             query.pos, query.neg, self.pos_t, self.neg_t, k, k_local,
-            self.n_true, self.mesh, use_fused,
+            self.n_true, self.mesh,
         )
 
     def knn_batch(self, queries, k: int):
@@ -344,10 +303,8 @@ class ShardedPackedTernary:
         if k <= 0 or self.n_true == 0:
             return jnp.zeros((n_q, 0), jnp.int32), jnp.zeros((n_q, 0), jnp.int32)
         k = min(int(k), self.n_true)
-        k_local, use_fused = _plan_packed(
-            self.n_pad, self.n_true, int(self.mesh.devices.size), k, n_q
-        )
+        k_local = _plan_packed(self.n_pad, int(self.mesh.devices.size), k)
         return _sharded_ternary_knn(
             qp, qn, self.pos_t, self.neg_t, k, k_local, self.n_true,
-            self.mesh, use_fused,
+            self.mesh,
         )

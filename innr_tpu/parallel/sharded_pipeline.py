@@ -5,7 +5,8 @@ The mesh-scale form of :class:`innr_tpu.pipeline.TwoStageIndex`. Both the
 f32 rows and the coarse representation shard row-wise with identical
 padding, so each device runs the complete two-stage pipeline over its local
 rows inside ONE ``shard_map`` body — coarse candidates never leave the
-device; only the final (exact score, global index) top-k pairs ride ICI.
+device; only the final (exact score, global index) top-k pairs cross
+devices.
 
 Recall contract: each shard shortlists ``k * rerank_factor`` *local*
 candidates (the single-chip index shortlists that many globally), so the
@@ -27,8 +28,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from innr_tpu.ops.binary import _pack_bits
 from innr_tpu.ops.scalar import QuantizationParams, QuantizedU8Batch
 from innr_tpu.ops.ternary import encode_ternary_batch
-from innr_tpu.parallel.sharded import AXIS, _invert_total_key, default_mesh
+from innr_tpu import scan
+from innr_tpu.parallel.sharded import AXIS, default_mesh
 from innr_tpu.pipeline import CoarseConfig
+from innr_tpu.route import current_route
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.order import total_order_key_f32
 from innr_tpu.utils.padding import pad_axis_to, round_up
@@ -38,18 +41,12 @@ __all__ = ["ShardedTwoStageIndex"]
 _INT_MIN = jnp.iinfo(jnp.int32).min
 
 
-def _coarse_local_candidates(qs_enc, coarse_local, kind, n_cand, use_fused):
-    """Local coarse shortlist: (Q, n_cand) LOCAL row indices. Above the
-    Pallas threshold the fused streaming kernels do the scan (one shard
-    read, no (Q, shard) score materialization)."""
+def _coarse_local_candidates(qs_enc, coarse_local, kind, n_cand, route):
+    """Local coarse shortlist: (Q, n_cand) LOCAL row indices. ``route``
+    is the dense scan's route for the u8/matryoshka kinds."""
     if kind == "binary":
         (q_words,) = qs_enc
         (words_t,) = coarse_local
-        if use_fused:
-            from innr_tpu.kernels.packed_knn import fused_binary_knn_batch
-
-            _, lidx = fused_binary_knn_batch(q_words, words_t, n_cand)
-            return lidx
         counts = jnp.sum(
             jax.lax.population_count(
                 words_t[None, :, :] ^ q_words[:, :, None]
@@ -61,11 +58,6 @@ def _coarse_local_candidates(qs_enc, coarse_local, kind, n_cand, use_fused):
     if kind == "ternary":
         qp, qn = qs_enc
         pos_t, neg_t = coarse_local
-        if use_fused:
-            from innr_tpu.kernels.packed_knn import fused_ternary_knn_batch
-
-            _, lidx = fused_ternary_knn_batch(qp, qn, pos_t, neg_t, n_cand)
-            return lidx
         same = (pos_t[None] & qp[:, :, None]) | (neg_t[None] & qn[:, :, None])
         diff = (pos_t[None] & qn[:, :, None]) | (neg_t[None] & qp[:, :, None])
         dots = jnp.sum(
@@ -76,29 +68,13 @@ def _coarse_local_candidates(qs_enc, coarse_local, kind, n_cand, use_fused):
         _, lidx = jax.lax.top_k(dots, n_cand)
         return lidx
     # u8 / matryoshka: f32-keyed MIPS over the compressed representation.
-    from innr_tpu import config
-
     (qs,) = qs_enc
     (rep,) = coarse_local
-    if use_fused:
-        from innr_tpu.kernels.knn import fused_knn_keys_batch
-
-        _, lidx = fused_knn_keys_batch(qs, rep, None, n_cand, "dot")
-        return lidx
-    # Unconditional: astype is a no-op for f32 under XLA, and jnp matmul
-    # would promote u8 identically — a dtype conditional here is
-    # unobservable (mutation-equivalent), so it was removed.
-    rep = rep.astype(jnp.float32)
-    scores = jnp.matmul(
-        qs, rep.T,
-        preferred_element_type=jnp.float32,
-        precision=config.matmul_precision(),
-    )
-    _, lidx = jax.lax.top_k(total_order_key_f32(scores), n_cand)
+    _, lidx = scan.knn_keys(qs, rep, None, n_cand, "dot", route=route)
     return lidx
 
 
-def _local_two_stage(qs, rows_shard, *coarse_and_enc, n_total, n_cand, k, kind, use_fused):
+def _local_two_stage(qs, rows_shard, *coarse_and_enc, n_total, n_cand, k, kind, route):
     """Per-shard body: coarse shortlist -> exact rerank -> local top-k
     (raw f32 total-order keys + global indices)."""
     n_coarse = {"binary": 1, "ternary": 2, "u8": 1, "matryoshka": 0}[kind]
@@ -109,7 +85,7 @@ def _local_two_stage(qs, rows_shard, *coarse_and_enc, n_total, n_cand, k, kind, 
 
     shard_rows = rows_shard.shape[0]
     base = jax.lax.axis_index(AXIS) * shard_rows
-    lidx_c = _coarse_local_candidates(qs_enc, coarse_local, kind, n_cand, use_fused)
+    lidx_c = _coarse_local_candidates(qs_enc, coarse_local, kind, n_cand, route)
 
     from innr_tpu import config
 
@@ -130,17 +106,17 @@ def _local_two_stage(qs, rows_shard, *coarse_and_enc, n_total, n_cand, k, kind, 
     jax.jit,
     static_argnames=(
         "n_total", "n_cand", "k", "k_local", "kind", "mesh", "n_coarse",
-        "use_fused",
+        "route",
     ),
 )
 def _sharded_two_stage(
     qs, rows_sharded, coarse_arrays, qs_enc, n_total, n_cand, k, k_local,
-    kind, mesh, n_coarse, use_fused,
+    kind, mesh, n_coarse, route,
 ):
     local = jax.shard_map(
         partial(
             _local_two_stage, n_total=n_total, n_cand=n_cand, k=k_local,
-            kind=kind, use_fused=use_fused,
+            kind=kind, route=route,
         ),
         mesh=mesh,
         in_specs=(
@@ -154,11 +130,12 @@ def _sharded_two_stage(
             *([P()] * len(qs_enc)),
         ),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     keys, gidx = local(qs, rows_sharded, *coarse_arrays, *qs_enc)
     merged_keys, pos = jax.lax.top_k(keys, k)
-    return _invert_total_key(merged_keys), jnp.take_along_axis(gidx, pos, axis=1)
+    return (scan.invert_total_key(merged_keys),
+            jnp.take_along_axis(gidx, pos, axis=1))
 
 
 class ShardedTwoStageIndex:
@@ -268,17 +245,14 @@ class ShardedTwoStageIndex:
         n_cand = min(max(k * self.rerank_factor, k), shard_rows)
         k_local = min(k, n_cand)
         qs_enc = self._encode_queries(qs)
-        from innr_tpu import config as _cfg
-
-        from innr_tpu.kernels.knn import single_pass_k as _spk
-
-        use_fused = (
-            not _cfg.reference_forced()
-            and shard_rows >= _cfg.MIN_ROWS_PALLAS
-            and n_cand <= _spk(n_q)
-        )
+        kind = self.config.kind
+        route = "xla"
+        if kind in ("u8", "matryoshka"):
+            rep_dtype = jnp.uint8 if kind == "u8" else jnp.float32
+            width = qs_enc[0].shape[1]
+            route = current_route("dense", shard_rows, n_cand, rep_dtype, n_q,
+                                  width)
         return _sharded_two_stage(
             qs, self.rows, self._coarse, qs_enc, self.n_true, n_cand, k,
-            k_local, self.config.kind, self.mesh, len(self._coarse),
-            use_fused,
+            k_local, kind, self.mesh, len(self._coarse), route,
         )

@@ -1,8 +1,9 @@
 """Distributed asymmetric u8 search over a sharded quantized corpus.
 
-Codes shard row-wise as uint8 (1 byte/dim in per-device HBM — the 4x
+Codes shard row-wise as uint8 (1 byte/dim in per-device memory — the 4x
 bandwidth lever of reference ``src/scalar.rs`` carried to the mesh). Each
-device runs the fused u8 streaming scan (codes widen on-chip), selection
+device runs the dense u8 scan of :mod:`innr_tpu.scan` (codes are read as
+bytes, never widened in memory), selection
 merges on raw *mixed* dot keys, and the affine correction
 ``(alpha/255) * mixed + offset * sum(q)`` applies once after the merge —
 a per-query monotone map (alpha > 0), so it cannot change selection.
@@ -17,9 +18,11 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from innr_tpu.ops.scalar import QuantizationParams, QuantizedU8Batch
-from innr_tpu.parallel.sharded import AXIS, _invert_total_key, default_mesh
+from innr_tpu.parallel._scan import local_scan_keys
+from innr_tpu.parallel.sharded import AXIS, default_mesh
+from innr_tpu.route import current_route
+from innr_tpu.scan import invert_total_key
 from innr_tpu.utils.asserts import ContractError
-from innr_tpu.utils.order import total_order_key_f32
 from innr_tpu.utils.padding import pad_axis_to, round_up
 
 __all__ = ["ShardedQuantizedU8"]
@@ -27,48 +30,30 @@ __all__ = ["ShardedQuantizedU8"]
 _INT_MIN = jnp.iinfo(jnp.int32).min
 
 
-def _local_u8_topk(qs, codes_shard, n_total, k, use_fused):
-    shard_rows = codes_shard.shape[0]
-    base = jax.lax.axis_index(AXIS) * shard_rows
-    if use_fused:
-        from innr_tpu.kernels.knn import fused_knn_keys_batch
-
-        keys, lidx = fused_knn_keys_batch(qs, codes_shard, None, k, "dot")
-        gidx = base + lidx
-        keys = jnp.where(gidx < n_total, keys, _INT_MIN)
-        return keys, gidx
-    from innr_tpu import config
-
-    mixed = jnp.matmul(
-        qs, codes_shard.astype(jnp.float32).T,
-        preferred_element_type=jnp.float32,
-        precision=config.matmul_precision(),
-    )
-    keys = total_order_key_f32(mixed)
-    gidx_row = base + jnp.arange(shard_rows, dtype=jnp.int32)
-    keys = jnp.where(gidx_row[None, :] < n_total, keys, _INT_MIN)
-    top_keys, tidx = jax.lax.top_k(keys, k)
-    return top_keys, gidx_row[tidx]
+def _local_u8_topk(qs, codes_shard, n_total, k, route):
+    base = jax.lax.axis_index(AXIS) * codes_shard.shape[0]
+    return local_scan_keys(qs, codes_shard, None, n_total, k, "dot", base,
+                           route=route)
 
 
-@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused"))
+@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "route"))
 def _sharded_u8_knn(
     qs, codes_sharded, alpha, offset, k: int, k_local: int, n_total: int,
-    mesh: Mesh, use_fused: bool,
+    mesh: Mesh, route: str,
 ):
     single = qs.ndim == 1
     if single:
         qs = qs[None, :]
     local = jax.shard_map(
-        partial(_local_u8_topk, n_total=n_total, k=k_local, use_fused=use_fused),
+        partial(_local_u8_topk, n_total=n_total, k=k_local, route=route),
         mesh=mesh,
         in_specs=(P(), P(AXIS, None)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
+        check_vma=False,  # a Triton kernel in the body carries no vma info
     )
     keys, gidx = local(qs, codes_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
-    mixed = _invert_total_key(merged_keys)
+    mixed = invert_total_key(merged_keys)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
     vals = (alpha / 255.0) * mixed + offset * jnp.sum(qs, axis=1, keepdims=True)
     if single:
@@ -159,19 +144,15 @@ class ShardedQuantizedU8:
                 )
             return jnp.zeros((0,), jnp.float32), jnp.zeros((0,), jnp.int32)
         k = min(int(k), self.n_true)
-        from innr_tpu import config
-
+        # Padding is masked after the local top-k: over-fetch by its count.
         pad = self.n_pad - self.n_true
         shard_rows = self.n_pad // int(self.mesh.devices.size)
-        # No k cap: the fused dense/u8 kernels run multi-pass past their
-        # single-pass VMEM budget (kernels/knn.py::_fused_knn_multi).
-        use_fused = (
-            not config.reference_forced()
-            and shard_rows >= config.MIN_ROWS_PALLAS
-        )
-        k_local = min(k + pad, shard_rows) if use_fused else min(k, shard_rows)
+        k_local = min(k + pad, shard_rows)
+        n_q = int(q.shape[0]) if q.ndim == 2 else 1
+        route = current_route("dense", shard_rows, k_local, jnp.uint8, n_q,
+                              self.dimension)
         return _sharded_u8_knn(
             q, self.codes,
             jnp.float32(self.params.alpha), jnp.float32(self.params.offset),
-            k, k_local, self.n_true, self.mesh, use_fused,
+            k, k_local, self.n_true, self.mesh, route,
         )

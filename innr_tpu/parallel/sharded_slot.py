@@ -1,17 +1,14 @@
 """Distributed search over a sharded slot-sketch (MinHash) corpus.
 
 Extends the distributed kNN merge to integer-slot sketches: the corpus
-shards **slot-major** — ``(S, N)`` uint32 with the sketch axis sharded —
-so each device's local scan is exactly the layout the fused slot kernel
-streams (lane = corpus sketch). The north-star MinHash config (10M x 128
-u32 slots) is 5.12 GB; sharding it across a mesh divides both the per-chip
-HBM footprint and the scan time.
+shards **slot-major** — ``(S, N)`` uint32 with the sketch axis sharded.
+The north-star MinHash config (10M x 128 u32 slots) is 5.12 GB; sharding
+it across a mesh divides both the per-device footprint and the scan time.
 
-Local scan: the fused compare-count streaming top-k kernel
-(:mod:`innr_tpu.kernels.slot_knn`) when the shard is large enough, else a
-jnp compare-reduce. Selection keys are the exact negated differing-slot
-counts, so per-shard results merge exactly (integer keys — the
-distributed result is bit-identical to a single-chip scan).
+Local scan: one XLA compare-reduce over the slot axis, then ``top_k``.
+Selection keys are the exact negated differing-slot counts, so per-shard
+results merge exactly (integer keys — the distributed result is
+bit-identical to a single-device scan).
 """
 
 from __future__ import annotations
@@ -32,19 +29,11 @@ __all__ = ["ShardedSlotCorpus"]
 _INT_MIN = jnp.iinfo(jnp.int32).min
 
 
-def _local_slot_topk(q_slots, slots_t_shard, n_total, k, use_fused):
+def _local_slot_topk(q_slots, slots_t_shard, n_total, k):
     """Per-shard body: (Q, S) queries x (S, shard) slot-major tile ->
     per-query local top-k keys (-count: larger = better) + global indices."""
     shard_cols = slots_t_shard.shape[1]
     base = jax.lax.axis_index(AXIS) * shard_cols
-    if use_fused:
-        from innr_tpu.kernels.slot_knn import fused_slot_knn_batch
-
-        counts, lidx = fused_slot_knn_batch(q_slots, slots_t_shard, k)
-        keys = -counts.astype(jnp.int32)
-        gidx = base + lidx
-        keys = jnp.where(gidx < n_total, keys, _INT_MIN)
-        return keys, gidx
     counts = jnp.sum(
         (slots_t_shard[None, :, :] != q_slots[:, :, None]).astype(jnp.int32),
         axis=1,
@@ -56,22 +45,18 @@ def _local_slot_topk(q_slots, slots_t_shard, n_total, k, use_fused):
     return top_keys, gidx_row[tidx]
 
 
-@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh", "use_fused"))
+@partial(jax.jit, static_argnames=("k", "k_local", "n_total", "mesh"))
 def _sharded_slot_knn(
     q_slots, slots_sharded, k: int, k_local: int, n_total: int, mesh: Mesh,
-    use_fused: bool,
 ):
     single = q_slots.ndim == 1
     if single:
         q_slots = q_slots[None, :]
     local = jax.shard_map(
-        partial(
-            _local_slot_topk, n_total=n_total, k=k_local, use_fused=use_fused
-        ),
+        partial(_local_slot_topk, n_total=n_total, k=k_local),
         mesh=mesh,
         in_specs=(P(), P(None, AXIS)),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_vma=False,  # Pallas calls inside the body have no vma info
     )
     keys, gidx = local(q_slots, slots_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
@@ -114,7 +99,7 @@ class ShardedSlotCorpus:
         self._num_slots = int(sketches.shape[1])
         self.n_pad = round_up(max(self.n_true, n_devices), n_devices)
         sketches = pad_axis_to(sketches, 0, self.n_pad)
-        # Slot-major (S, N): the fused slot kernel's streaming layout.
+        # Slot-major (S, N), sketch axis sharded.
         self.slots_t = jax.device_put(
             sketches.T, NamedSharding(self.mesh, P(None, AXIS))
         )
@@ -180,12 +165,9 @@ class ShardedSlotCorpus:
                 )
             return jnp.zeros((0,), jnp.uint32), jnp.zeros((0,), jnp.int32)
         k = min(int(k), self.n_true)
-        k_local, use_fused = _plan_packed(
-            self.n_pad, self.n_true, int(self.mesh.devices.size), k,
-            int(q.shape[0]) if q.ndim == 2 else 1,
-        )
+        k_local = _plan_packed(self.n_pad, int(self.mesh.devices.size), k)
         return _sharded_slot_knn(
-            q, self.slots_t, k, k_local, self.n_true, self.mesh, use_fused
+            q, self.slots_t, k, k_local, self.n_true, self.mesh
         )
 
     def knn(self, query, k: int):

@@ -6,7 +6,7 @@ Extends the distributed kNN merge to sparse documents: the padded
 vectorized binary-search join and selects a local top-k by f32
 total-order key; the per-shard (key, global index) pairs merge exactly
 as in the dense family. The reference has no corpus-scale sparse search
-(``src/sparse.rs`` is pairwise only) — this is the TPU-native batch form
+(``src/sparse.rs`` is pairwise only) — this is the batch form
 distributed.
 """
 
@@ -19,7 +19,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from innr_tpu.ops.sparse import SparseCorpus, _corpus_scores, pad_sparse
-from innr_tpu.parallel.sharded import AXIS, _invert_total_key, default_mesh
+from innr_tpu.parallel.sharded import AXIS, default_mesh
+from innr_tpu.scan import invert_total_key
 from innr_tpu.utils.asserts import ContractError
 from innr_tpu.utils.order import total_order_key_f32
 from innr_tpu.utils.padding import pad_axis_to, round_up
@@ -64,7 +65,7 @@ def _sharded_sparse_knn(
     keys, gidx = local(q_idx, q_val, c_idx_sharded, c_val_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    vals = _invert_total_key(merged_keys)
+    vals = invert_total_key(merged_keys)
     if single:
         return vals[0], idx[0]
     return vals, idx
@@ -100,7 +101,7 @@ def _sharded_sparse_maxsim(
     keys, gidx = local(q_idx, q_val, d_idx_sharded, d_val_sharded, d_mask_sharded)
     merged_keys, pos = jax.lax.top_k(keys, k)
     idx = jnp.take_along_axis(gidx, pos, axis=1)
-    return _invert_total_key(merged_keys)[0], idx[0]
+    return invert_total_key(merged_keys)[0], idx[0]
 
 
 class ShardedSparseMaxSimCorpus:

@@ -1,7 +1,7 @@
 """Contract checks.
 
 The reference crate's dispatching functions *panic* on length mismatch
-(reference ``src/lib.rs:34-46``). The TPU analog raises :class:`ContractError`
+(reference ``src/lib.rs:34-46``). The analog here raises :class:`ContractError`
 (a ``ValueError``) at trace time — shapes are static under ``jax.jit``, so the
 check costs nothing at runtime and fires exactly where the panic would.
 """

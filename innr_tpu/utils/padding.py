@@ -1,23 +1,13 @@
-"""Tile padding helpers.
+"""Padding helpers.
 
-TPU compute units want shapes in multiples of the hardware tile (8x128 for
-f32, 32x128 for int8; see the MXU/VPU tiling constraints). These helpers pad
-an axis up to a multiple and are used by the Pallas kernels and the sharded
-corpus container so padding never breaks index mapping.
+Pad an axis up to a multiple — used by the sharded containers (rows padded
+to a multiple of the mesh size) so padding never breaks index mapping.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-# Hardware tiling constants (v4/v5 register shape for f32): the VPU/MXU
-# lane (last-dim) width and the sublane (second-minor) height. Pallas
-# block shapes must be multiples of these; they are properties of the
-# silicon, not tunables.
-LANE = 128
-SUBLANE = 8
-
 
 def round_up(x: int, multiple: int) -> int:
     """Smallest multiple of ``multiple`` that is >= ``x``."""

@@ -1,6 +1,6 @@
 /* innr_tpu host-side native runtime.
  *
- * The TPU does the scoring; this library is the native half of the
+ * The device does the scoring; this library is the native half of the
  * *runtime around it*: data-loader encoders (bit packing, ternary planes,
  * u8 quantization) that prepare corpora for device upload without a JAX
  * round-trip, a streaming TopK tracker for host-side candidate merging
@@ -134,7 +134,7 @@ void innr_pack_ternary_rows(const float *v, int64_t rows, int64_t n,
  * deterministic: output is bit-identical to the serial encoders for any
  * thread count. This is the host-side throughput path for 10M-row corpus
  * preparation (the reference is single-core by design; the runtime around
- * the TPU is not).
+ * the device is not).
  */
 
 typedef struct {

@@ -6,7 +6,7 @@ modules to measure whether the differential/property oracles would catch
 injected bugs (``mutants.yml:30-35``). No mutation framework is baked into
 this image, so this script is the self-contained analog: it applies a
 curated set of single-line mutations to the same class of code (dense
-reductions, total-order keys, the TopK tracker, the fused kNN kernel's
+reductions, total-order keys, the TopK tracker, the Triton kNN kernel's
 selection logic), runs the targeted test subset per mutant in a fresh
 subprocess, and requires EVERY mutant to be killed (tests fail).
 
@@ -79,17 +79,17 @@ MUTANTS = [
         ("tests/test_topk.py",),
     ),
     Mutant(
-        "fused-knn-tie-break-flip",
-        "innr_tpu/kernels/knn.py",
-        "            ins = jnp.sum((bk >= m).astype(jnp.int32), axis=1, keepdims=True)\n",
-        "            ins = jnp.sum((bk > m).astype(jnp.int32), axis=1, keepdims=True)\n",
+        "triton-knn-tie-break-flip",
+        "innr_tpu/kernels/triton_knn.py",
+        "            put = (m > wk) & (bk == wk) & (bi == wi)\n",
+        "            put = (m >= wk) & (bk == wk) & (bi == wi)\n",
         ("tests/test_kernels.py",),
     ),
     Mutant(
-        "fused-knn-l2-loses-key-flip",
-        "innr_tpu/kernels/knn.py",
-        "    if mode in (\"l2\", \"l2m\"):\n        keys = ~keys  # L2: smaller distance = better\n",
-        "    if mode in ():\n        keys = ~keys  # L2: smaller distance = better\n",
+        "triton-knn-l2-loses-key-flip",
+        "innr_tpu/kernels/triton_knn.py",
+        "        if mode in (\"l2\", \"l2m\"):\n            keys = ~keys\n",
+        "        if mode in ():\n            keys = ~keys\n",
         ("tests/test_kernels.py",),
     ),
     Mutant(
@@ -126,25 +126,16 @@ MUTANTS = [
     ),
     Mutant(
         "slot-knn-compare-flips-to-equal",
-        "innr_tpu/kernels/slot_knn.py",
-        "    diff = (slots_ref[:] != q_ref[:]).astype(jnp.int32)\n"
-        "    counts = jnp.sum(diff, axis=0, keepdims=True)\n",
-        "    diff = (slots_ref[:] == q_ref[:]).astype(jnp.int32)\n"
-        "    counts = jnp.sum(diff, axis=0, keepdims=True)\n",
-        ("tests/test_slot.py",),
-    ),
-    Mutant(
-        "slot-knn-key-negation-dropped",
-        "innr_tpu/kernels/slot_knn.py",
-        "        counts = chunk if counts is None else counts + chunk\n    keys = -counts\n",
-        "        counts = chunk if counts is None else counts + chunk\n    keys = counts\n",
+        "innr_tpu/ops/slot.py",
+        "        (sketches[None, :, :] != queries[:, None, :]).astype(jnp.int32), axis=2\n",
+        "        (sketches[None, :, :] == queries[:, None, :]).astype(jnp.int32), axis=2\n",
         ("tests/test_slot.py",),
     ),
     Mutant(
         "filtered-mask-polarity-flip",
-        "innr_tpu/kernels/knn.py",
-        "        keys = jnp.where(norms_ref[1:2, :] > 0.0, keys, _INT_MIN)\n",
-        "        keys = jnp.where(norms_ref[1:2, :] <= 0.0, keys, _INT_MIN)\n",
+        "innr_tpu/scan.py",
+        "        keys = jnp.where(pred[None, :] > 0.0, keys, _INT_MIN)\n",
+        "        keys = jnp.where(pred[None, :] <= 0.0, keys, _INT_MIN)\n",
         ("tests/test_batch.py",),
     ),
     Mutant(

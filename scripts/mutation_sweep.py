@@ -55,12 +55,9 @@ TARGETS: dict[str, tuple[str, ...]] = {
     "innr_tpu/ops/topk.py": ("tests/test_topk.py", "tests/test_mutation_hardening.py"),
     "innr_tpu/ops/fast_math.py": ("tests/test_quant_fastmath.py", "tests/test_mutation_hardening.py"),
     "innr_tpu/utils/order.py": ("tests/test_topk.py", "tests/test_kernels.py", "tests/test_mutation_hardening.py"),
-    "innr_tpu/kernels/knn.py": ("tests/test_kernels.py", "tests/test_prune.py", "tests/test_mutation_hardening.py"),
-    "innr_tpu/kernels/packed_knn.py": ("tests/test_packed_knn.py", "tests/test_mutation_hardening.py"),
-    "innr_tpu/kernels/slot_knn.py": ("tests/test_slot.py", "tests/test_mutation_hardening.py"),
-    "innr_tpu/kernels/maxsim_kernel.py": ("tests/test_maxsim.py", "tests/test_mutation_hardening.py"),
-    "innr_tpu/kernels/pruned_knn.py": ("tests/test_prune.py", "tests/test_mutation_hardening.py"),
-    "innr_tpu/kernels/assign.py": ("tests/test_prune.py", "tests/test_mutation_hardening.py"),
+    "innr_tpu/kernels/triton_knn.py": ("tests/test_kernels.py", "tests/test_prune.py", "tests/test_mutation_hardening.py"),
+    "innr_tpu/scan.py": ("tests/test_kernels.py", "tests/test_batch.py", "tests/test_mutation_hardening.py"),
+    "innr_tpu/route.py": ("tests/test_route.py", "tests/test_dispatch_coverage.py"),
     "innr_tpu/prune.py": ("tests/test_prune.py", "tests/test_mutation_hardening.py"),
     "innr_tpu/batch.py": ("tests/test_batch.py", "tests/test_mutation_hardening.py"),
     "innr_tpu/segmented.py": ("tests/test_segmented.py", "tests/test_mutation_hardening.py"),
@@ -98,10 +95,6 @@ TARGETS: dict[str, tuple[str, ...]] = {
         "tests/test_maxsim.py", "tests/test_sparse.py",
         "tests/test_mutation_hardening.py",
     ),
-    "innr_tpu/kernels/hamming.py": (
-        "tests/test_binary.py", "tests/test_ternary.py",
-        "tests/test_mutation_hardening.py",
-    ),
     "innr_tpu/distance.py": (
         "tests/test_distance_backend.py", "tests/test_interop_sklearn.py",
     ),
@@ -135,12 +128,6 @@ TARGETS: dict[str, tuple[str, ...]] = {
     "innr_tpu/ivf.py": (
         "tests/test_ivf.py", "tests/test_mutation_hardening.py",
     ),
-    # Round-5 addition: the fused compare-select sparse kNN kernel
-    # (dense-tile sentinel scoring; CPU-interpretable via should_interpret).
-    "innr_tpu/kernels/sparse_knn.py": (
-        "tests/test_sparse.py", "tests/test_kernels.py",
-        "tests/test_mutation_hardening.py",
-    ),
 }
 
 _BINOP_SWAPS = {
@@ -165,27 +152,16 @@ _CMP_SWAPS = {
 }
 
 # Functions whose mutants are EQUIVALENT by design (pure performance
-# knobs: tile-size heuristics, VMEM budget constants, thread-count
-# choice). Any legal value yields correct results — only throughput (or
-# a silicon-only OOM, gated separately by the plan_geometry invariant
-# tests) changes — so mutating them measures nothing. The cargo-mutants
-# `exclude_re` analog.
+# knobs: block-size heuristics, thread-count choice). Any legal value
+# yields correct results — only throughput changes — so mutating them
+# measures nothing. The cargo-mutants `exclude_re` analog.
 EXCLUDED_FUNCS = {
-    "_pick_tile_n",
-    "_pick_tile_n_mq",
     "_pick_tile",
-    "_pick_tile_docs",
-    "_pick_tile_docs_mq",
-    # VMEM-budget estimator feeding only the (excluded) tile pickers —
-    # packed_knn/slot_knn/sparse_knn all define one; any value is
-    # correct, only the tile size (perf) changes.
-    "_topk_bytes",
-    "pruned_tile_n",
-    "_fast_plan_ok",
+    "block_rows",
+    "default_tile_n",
+    "suggest_tile_n",
     "_pad_tail",
     "_pow2_ceil",
-    "plan_geometry",
-    "single_pass_k",
     "_n_threads",
     "memory_bytes",
 }
@@ -194,43 +170,12 @@ EXCLUDED_FUNCS = {
 # _SPLITTER, whose float mutation (negation) is EQUIVALENT: Dekker's
 # 2^12 + 1 splitter is sign-symmetric (verified: ±4097 both yield a
 # valid 12-bit split). Its MAGNITUDE is pinned by
-# test_df64_splitter_carries_low_bits.
-# _Q_TILE (8) and _LANE (128) are TPU hardware ISA constants (sublane /
-# lane tile widths): Mosaic rejects any other value at compile time on
-# silicon, and the CPU interpreter accepts anything — so their mutants
-# are unobservable off-chip and self-killing on-chip (knn.py exhaustive
-# sweep, round 4).
+# test_df64_splitter_carries_low_bits. TOPK_CHUNK and the route bounds
+# only move work between exact implementations.
 EXCLUDED_CONSTS = {
-    "_TOPK_VMEM_BUDGET", "_K_MAX_PASS", "_W_CHUNK", "_S_CHUNK", "_SPLITTER",
-    "_Q_TILE", "_LANE",
-    # MIN_ROWS_PALLAS is the fused-kernel dispatch threshold: every gate
-    # test derives its boundary shapes from the constant itself (the
-    # TestFusedGateContracts spy tables), so a mutated value moves the
-    # gate and the tests consistently — any value is *correct*, only
-    # launch-overhead amortization (perf) changes. Same class as the
-    # tile pickers (phase-2 sweep, round 4).
-    "MIN_ROWS_PALLAS",
-    # Sparse fused-join gate: both routes are exact (the compare-select
-    # kernel is bit-identical to the XLA join) and the gate-contract
-    # test derives its boundary shapes from the constant
-    # (tests/test_kernels.py sparse gate spy) — MIN_ROWS_PALLAS class.
-    "MAX_QUERY_NNZ",
+    "_SPLITTER", "TOPK_CHUNK", "SUB_N", "_D_CHUNK_MAX",
+    "TRITON_MIN_ROWS", "TRITON_MAX_Q",
 }
-
-# Functions that only execute on real TPU silicon: the emit_pipeline
-# dynamic-grid kernels are rejected by the CPU interpreter
-# (`should_interpret()` routes tests to the static twins), so a CPU
-# mutant run can never observe them. Their score math is the SAME body
-# the static kernels run (`_scan_tile_into` / `_tile_dists`, which stay
-# mutable), and the DMA plumbing is exercised on-chip by the probes,
-# examples and bench.
-EXCLUDED_SILICON_FUNCS = {
-    "_pruned_outer_kernel",
-    "_pruned_raw_dynamic",
-    "_threshold_outer_kernel",
-    "_threshold_raw_dynamic",
-}
-EXCLUDED_FUNCS = EXCLUDED_FUNCS | EXCLUDED_SILICON_FUNCS
 
 
 def _excluded_ranges(tree: ast.AST) -> list[tuple[int, int]]:
@@ -249,7 +194,7 @@ def _excluded_ranges(tree: ast.AST) -> list[tuple[int, int]]:
             isinstance(node.target, ast.Name)
             and node.target.id in EXCLUDED_CONSTS
         ):
-            # `NAME: type = const` form (e.g. config.MIN_ROWS_PALLAS).
+            # `NAME: type = const` form.
             out.append((node.lineno, node.end_lineno or node.lineno))
     return out
 

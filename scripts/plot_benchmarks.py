@@ -4,12 +4,13 @@
 The analog of the reference's ``scripts/plot_benchmarks.py:13-19``, which
 pins criterion medians in-repo as the README chart source so performance
 regressions diff mechanically. Here the pinned data is
-``benches/medians.json`` (recorded same-session measurements + roofline
-fractions from PERF.md); this script renders it as
+``benches/medians.json``, written by ``--update`` from a bench run (no
+pins exist until the benchmark's first run on the card); this script
+renders it as
 
 - a markdown table (stdout; paste into README/PERF.md), and
 - ``docs/bench_roofline.png`` — a horizontal bar chart of roofline
-  fractions (the relay-variance-proof metric) with ``--png``.
+  fractions (the run-variance-proof metric) with ``--png``.
 
 Compare a fresh run against the pins with ``--check`` (exit 1 when any
 roofline fraction regresses by more than ``--tolerance``, default 0.10):
@@ -132,7 +133,7 @@ def check(data, bench_stderr: str, default_tolerance: float) -> int:
                 continue
             print(f"ok {name}: roofline {got_rf:.2f} (pin {pin_rf:.2f})")
         else:
-            # No roofline on either side: compare raw values (relay
+            # No roofline on either side: compare raw values (run
             # variance makes this looser — 2x tolerance).
             pin_v = c["value"]
             if c.get("lower_is_better"):

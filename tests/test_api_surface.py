@@ -119,7 +119,7 @@ def test_portable_oracles_present():
         assert hasattr(ref, name), name
 
 
-def test_tpu_native_additions_present():
+def test_native_additions_present():
     """The survey §2.4-mandated additions and serving layer."""
     from innr_tpu.parallel import ShardedCorpus, ShardedPackedBinary  # noqa
     from innr_tpu.pipeline import TwoStageIndex  # noqa
@@ -150,7 +150,7 @@ class TestReferenceApiParity:
             "innr_tpu.ops.reference", "l2_distance_squared_portable",
         ),
         "sparse_dot_portable": ("innr_tpu.ops.reference", "sparse_dot_portable"),
-        # One portable covers all slot widths (no per-ISA paths on TPU).
+        # One portable covers all slot widths (no per-ISA paths here).
         "slot_hamming_u32_portable": (
             "innr_tpu.ops.reference", "slot_hamming_portable",
         ),

@@ -129,11 +129,14 @@ class TestKnn:
         assert np.all(np.diff(res.scores) >= 0)  # ascending
 
     def test_knn_dot_k_beyond_old_cap_stays_fused(self, rng):
-        """k > 512 must stay on the fused path (no silent fall to the
-        multi-query matmul; VERDICT r2 item 3) and match brute force."""
-        from innr_tpu.batch import _use_fused
+        """k past the Triton kernel's cap takes the XLA route (whose top-k
+        has no cap) and must match brute force."""
+        from innr_tpu import route
+        from innr_tpu.kernels import triton_knn
 
-        assert _use_fused(4096, 600)
+        assert route.route("dense", "gpu", 1 << 20, 600, np.float32, 2,
+                           128) == "xla"
+        assert 600 > triton_knn.K_MAX
         rows = rng.standard_normal((4096, 24)).astype(np.float32)
         qs = rng.standard_normal((2, 24)).astype(np.float32)
         vb = it.VerticalBatch.from_rows(rows)
@@ -357,7 +360,7 @@ class TestFilteredFusedAndMulti:
             np.testing.assert_allclose(multi.scores[i], single.scores, rtol=1e-5)
         assert mask[multi.indices].all()
 
-    def test_filtered_fused_matches_jnp(self, rng, monkeypatch):
+    def test_filtered_fused_matches_jnp(self, rng, monkeypatch, force_triton):
         from innr_tpu import config
 
         rows = _corpus(rng, 500, 24)
@@ -365,12 +368,12 @@ class TestFilteredFusedAndMulti:
         vb = it.VerticalBatch.from_rows(rows)
         mask = rng.random(500) > 0.7
         want = it.batch_knn_filtered(q, vb, 6, mask)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         got = it.batch_knn_filtered(q, vb, 6, mask)
         np.testing.assert_array_equal(got.indices, want.indices)
         np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4, atol=1e-5)
 
-    def test_filtered_fused_fewer_passing_than_k(self, rng, monkeypatch):
+    def test_filtered_fused_fewer_passing_than_k(self, rng, monkeypatch, force_triton):
         from innr_tpu import config
 
         rows = _corpus(rng, 200, 8)
@@ -378,7 +381,7 @@ class TestFilteredFusedAndMulti:
         vb = it.VerticalBatch.from_rows(rows)
         mask = np.zeros(200, bool)
         mask[[3, 77, 150]] = True
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         res = it.batch_knn_filtered(q, vb, 10, mask)
         assert len(res.indices) == 3
         assert set(res.indices.tolist()) == {3, 77, 150}
@@ -414,7 +417,7 @@ class TestAdaptiveReorderedMulti:
 
 
 class TestBf16Corpus:
-    """bf16 half-precision corpora (TPU-native extension): half the HBM
+    """bf16 half-precision corpora (extension): half the HBM
     bytes per scan; rankings match f32 on well-separated data and scores
     agree to bf16 precision."""
 
@@ -437,7 +440,7 @@ class TestBf16Corpus:
                               & set(r32.indices[i].ravel().tolist()))
                 assert overlap >= 4
 
-    def test_bf16_fused_path(self, rng, monkeypatch):
+    def test_bf16_fused_path(self, rng, monkeypatch, force_triton):
         import jax.numpy as jnp
         from innr_tpu import config
 
@@ -445,7 +448,7 @@ class TestBf16Corpus:
         q = rng.standard_normal(32).astype(np.float32)
         vb16 = it.VerticalBatch(rows, dtype=jnp.bfloat16)
         want = it.batch_knn_dot(q, vb16, 4)  # jnp path
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         got = it.batch_knn_dot(q, vb16, 4)  # fused path
         np.testing.assert_allclose(got.scores, want.scores, rtol=2e-2, atol=2e-2)
 

@@ -96,7 +96,7 @@ class TestContracts:
 
 
 class TestDifferential:
-    """TPU kernels vs NumPy oracles at condition-aware tolerances over
+    """Device ops vs NumPy oracles at condition-aware tolerances over
     boundary-crossing dimensions."""
 
     @pytest.mark.parametrize("dim", BOUNDARY_DIMS)

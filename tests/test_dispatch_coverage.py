@@ -2,10 +2,12 @@
 
 The reference's CI coverage job exists to prove "every dispatch arm
 executes" (``.github/workflows/ci.yml:174``). innr_tpu's dispatch arms are
-fused-Pallas vs jnp/MXU vs forced-reference per op family; this module
-drives each family through all of its arms and *instruments the arms
-themselves* (wrapping the kernel entry points) so the gate fails if a
+the Triton kernel vs the XLA route vs forced-reference per op family
+(:mod:`innr_tpu.route`); this module drives each family through all of its
+arms and *instruments the kernel entry point* so the gate fails if a
 dispatch change silently stops exercising a path — no coverage.py needed.
+The Triton arm runs in Pallas interpret mode (the ``force_triton``
+fixture).
 """
 
 import numpy as np
@@ -32,10 +34,14 @@ def _record_calls(monkeypatch, module, name, log):
 
 class TestDispatchArms:
     def test_backend_reporting_tracks_force_reference(self):
+        import jax.numpy as jnp
+
         from innr_tpu import backend
 
-        assert backend.batch_backend(10 ** 6) is backend.Backend.PALLAS
-        assert backend.batch_backend(10) is backend.Backend.MXU
+        # On the CPU every scan takes the XLA route.
+        assert backend.batch_backend(10 ** 6) is backend.Backend.XLA
+        assert backend.batch_backend(10) is backend.Backend.XLA
+        assert backend.dense_backend(128) is backend.Backend.XLA
         try:
             config.force_reference(True)
             assert backend.batch_backend(10 ** 6) is backend.Backend.REFERENCE
@@ -43,29 +49,25 @@ class TestDispatchArms:
             assert backend.slot_backend(64) is backend.Backend.REFERENCE
         finally:
             config.force_reference(False)
+        assert backend.batch_backend(
+            10 ** 6, 10, 32, jnp.bfloat16, 128) is backend.Backend.XLA
 
     @pytest.mark.parametrize(
         "family,fused_names",
-        [
-            ("dense", ["fused_knn_dot_batch", "fused_knn_l2", "fused_knn_cosine_batch"]),
-            ("binary", ["fused_binary_knn"]),
-            ("ternary", ["fused_ternary_knn"]),
-            ("u8", ["fused_knn_u8_batch"]),
-        ],
+        [("dense", ["knn_keys"]), ("binary", []), ("ternary", []),
+         ("u8", ["knn_keys"])],
     )
-    def test_all_three_arms_execute(self, rng, monkeypatch, family, fused_names):
-        """For each op family: the fused arm, the jnp arm, and the forced-
-        reference arm all run, produce identical indices, and the fused arm
-        is *observed* (instrumented), not assumed."""
-        from innr_tpu.kernels import knn as kknn, packed_knn as kpacked
+    def test_all_three_arms_execute(self, rng, monkeypatch, force_triton,
+                                    family, fused_names):
+        """For each op family: the XLA arm, the Triton arm (where the
+        family has a kernel; ``fused_names`` are its entry points) and the
+        forced-reference arm all run and produce identical indices; the
+        kernel arm is *observed* (instrumented), not assumed."""
+        from innr_tpu.kernels import triton_knn
 
         rows = rng.standard_normal((64, 32)).astype(np.float32)
         q = rows[3] + 0.01 * rng.standard_normal(32).astype(np.float32)
         calls: list = []
-        for mod in (kknn, kpacked):
-            for name in fused_names:
-                if hasattr(mod, name):
-                    _record_calls(monkeypatch, mod, name, calls)
 
         def run():
             if family == "dense":
@@ -91,75 +93,73 @@ class TestDispatchArms:
             res = it.batch_knn_u8(q, corpus, params, 3)
             return np.asarray([i for i, _ in res])
 
-        # Arm 1: jnp/MXU (64 rows < MIN_ROWS_PALLAS).
-        assert 64 < config.MIN_ROWS_PALLAS
-        idx_jnp = run()
-        assert calls == [], f"fused arm ran below threshold: {calls}"
+        # Arm 1: the XLA route (the CPU's only route).
+        _record_calls(monkeypatch, triton_knn, "knn_keys", calls)
+        idx_xla = run()
+        assert calls == [], f"kernel ran on the CPU route: {calls}"
 
-        # Arm 2: fused Pallas (threshold lowered; interpret mode off-TPU).
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        idx_fused = run()
-        assert calls, "fused arm did not execute"
-        np.testing.assert_array_equal(idx_fused, idx_jnp)
+        # Arm 2: the Triton kernel (interpret mode).
+        force_triton()
+        _record_calls(monkeypatch, triton_knn, "knn_keys", calls)
+        idx_kernel = run()
+        if fused_names:
+            assert calls, "kernel arm did not execute"
+        else:
+            assert calls == [], f"{family} has no kernel: {calls}"
+        np.testing.assert_array_equal(idx_kernel, idx_xla)
 
-        # Arm 3: forced reference beats the threshold knob.
+        # Arm 3: forced reference beats the route.
         calls.clear()
         try:
             config.force_reference(True)
             idx_ref = run()
         finally:
             config.force_reference(False)
-        assert calls == [], f"fused arm ran while reference forced: {calls}"
-        np.testing.assert_array_equal(idx_ref, idx_jnp)
+        assert calls == [], f"kernel ran while reference forced: {calls}"
+        np.testing.assert_array_equal(idx_ref, idx_xla)
 
-    def test_maxsim_both_arms(self, rng, monkeypatch):
-        from innr_tpu.kernels import maxsim_kernel as kmax
+    def test_maxsim_both_arms(self, rng, monkeypatch, force_triton):
+        """MaxSim has one route (the einsum); forcing the dense kernel
+        route must not change it."""
+        from innr_tpu.kernels import triton_knn
         from innr_tpu.ops.maxsim import maxsim_knn
 
         docs = rng.standard_normal((80, 6, 16)).astype(np.float32)
         q = rng.standard_normal((4, 16)).astype(np.float32)
         calls: list = []
-        _record_calls(monkeypatch, kmax, "fused_maxsim_knn", calls)
-
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 10 ** 9)
-        _, idx_jnp = maxsim_knn(q, docs, 5)
+        _, idx_xla = maxsim_knn(q, docs, 5)
+        force_triton()
+        _record_calls(monkeypatch, triton_knn, "knn_keys", calls)
+        _, idx_forced = maxsim_knn(q, docs, 5)
         assert calls == []
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 16)
-        _, idx_fused = maxsim_knn(q, docs, 5)
-        assert calls
-        np.testing.assert_array_equal(idx_fused, idx_jnp)
+        np.testing.assert_array_equal(idx_forced, idx_xla)
 
-    def test_slot_all_three_arms(self, rng, monkeypatch):
-        """Slot-sketch family: fused vs jnp vs forced-reference arms all
-        execute and agree exactly (integer counts)."""
-        from innr_tpu.kernels import slot_knn as kslot
+    def test_slot_all_three_arms(self, rng, monkeypatch, force_triton):
+        """Slot-sketch family: the XLA compare-reduce under the default
+        route, the forced kernel route (no slot kernel exists) and the
+        forced-reference arm all agree exactly (integer counts)."""
+        from innr_tpu.kernels import triton_knn
 
         sketches = rng.integers(0, 8, (64, 32)).astype(np.uint32)
         corpus = it.SketchCorpus(sketches)
         q = sketches[11]
         calls: list = []
-        for name in ("fused_slot_knn", "fused_slot_knn_batch"):
-            _record_calls(monkeypatch, kslot, name, calls)
 
         def run():
             _, i1 = it.slot_knn_u32(q, corpus, 3)
             _, i2 = it.slot_knn_u32_batch(sketches[:2], corpus, 3)
             return np.concatenate([np.ravel(np.asarray(i1)), np.ravel(np.asarray(i2))])
 
-        assert 64 < config.MIN_ROWS_PALLAS
-        idx_jnp = run()
-        assert calls == [], f"fused arm ran below threshold: {calls}"
+        idx_xla = run()
+        force_triton()
+        _record_calls(monkeypatch, triton_knn, "knn_keys", calls)
+        idx_forced = run()
+        assert calls == []
+        np.testing.assert_array_equal(idx_forced, idx_xla)
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        idx_fused = run()
-        assert sorted(set(calls)) == ["fused_slot_knn", "fused_slot_knn_batch"]
-        np.testing.assert_array_equal(idx_fused, idx_jnp)
-
-        calls.clear()
         try:
             config.force_reference(True)
             idx_ref = run()
         finally:
             config.force_reference(False)
-        assert calls == [], f"fused arm ran while reference forced: {calls}"
-        np.testing.assert_array_equal(idx_ref, idx_jnp)
+        np.testing.assert_array_equal(idx_ref, idx_xla)

@@ -72,14 +72,21 @@ class TestBackend:
     def test_display_strings_stable(self):
         # These strings appear in logs/bug reports; renaming is breaking
         # (reference src/backend.rs:114-120).
-        assert str(backend.Backend.PALLAS) == "pallas"
-        assert str(backend.Backend.MXU) == "mxu"
-        assert str(backend.Backend.VPU) == "vpu"
+        assert str(backend.Backend.TRITON) == "triton"
+        assert str(backend.Backend.XLA) == "xla"
         assert str(backend.Backend.REFERENCE) == "reference"
+        assert len(backend.Backend) == 3
 
-    def test_batch_backend_thresholds(self):
-        assert backend.batch_backend(10) == backend.Backend.MXU
-        assert backend.batch_backend(config.MIN_ROWS_PALLAS) == backend.Backend.PALLAS
+    def test_batch_backend_thresholds(self, monkeypatch):
+        import jax
+
+        assert backend.batch_backend(10) == backend.Backend.XLA
+        assert backend.batch_backend(10 ** 7) == backend.Backend.XLA  # CPU
+        # On a GPU the report follows the route function.
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert backend.batch_backend(10 ** 7, 10, 32) == backend.Backend.TRITON
+        assert backend.batch_backend(10) == backend.Backend.XLA
+        assert backend.batch_backend(10 ** 7, 640, 32) == backend.Backend.XLA
 
     def test_force_reference(self):
         config.force_reference(True)
@@ -89,7 +96,8 @@ class TestBackend:
             assert backend.slot_backend(128) == backend.Backend.REFERENCE
         finally:
             config.force_reference(False)
-        assert backend.dense_backend(768) == backend.Backend.VPU
+        assert backend.dense_backend(768) == backend.Backend.XLA
+        assert backend.slot_backend(128) == backend.Backend.XLA
 
     def test_matmul_precision_knob(self):
         config.set_matmul_precision("default")

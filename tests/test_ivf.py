@@ -1,9 +1,10 @@
 """IVFIndex: tile-aligned cluster-padded layout + masked pruned scan.
 
-The exactness oracle is the plain fused scan (``batch_knn*`` on the
-ORIGINAL corpus): per-row scores are the same f32 expressions, so the
-result SETS must agree wherever scores are distinct (the layouts differ
-only in tie-break row order). Elision assertions use well-separated
+The exactness oracle is the plain scan (``batch_knn*`` on the ORIGINAL
+corpus). On the Triton route per-row scores are the same f32 expressions
+in both layouts, so the result SETS must agree wherever scores are
+distinct (the layouts differ only in tie-break row order); those tests run
+the kernel in interpret mode (``force_triton``). Elision assertions use well-separated
 clustered corpora where the bound math guarantees pruning.
 """
 
@@ -89,10 +90,11 @@ class TestMaskedSummary:
 
 class TestIVFExactness:
     @pytest.mark.parametrize("metric", ["dot", "l2", "cosine"])
-    def test_matches_plain_scan(self, rng, metric):
+    def test_matches_plain_scan(self, rng, metric, force_triton):
         rows, centers = _clustered(rng)
         qs = (centers[:4] + 0.01).astype(np.float32)
         idx = IVFIndex(rows, n_clusters=16, metric=metric, n_iters=4)
+        force_triton()
         got = idx.search_batch(qs, 5)
         vb = it.VerticalBatch.from_rows(rows)
         if metric == "dot":
@@ -168,20 +170,13 @@ class TestIVFExactness:
         assert _sets_equal(got.indices, want.indices)
 
     def test_full_route_still_masked(self, rng):
-        """Router edge: when the plan elides too little and the full fused
-        branch runs, the masked mode must still exclude padding."""
-        from innr_tpu import config
-
+        """The XLA route scans every tile (no survivor list): the masked
+        mode must still exclude padding."""
         rows = rng.standard_normal((4_100, 32)).astype(np.float32)  # no structure
         idx = IVFIndex(rows, n_clusters=8, metric="dot", n_iters=2,
                        tile_n=512)
         qs = rng.standard_normal((3, 32)).astype(np.float32)
-        old = config.prune_route_min_elide()
-        try:
-            config.set_prune_route_min_elide(1.0)  # force the full branch
-            got = idx.search_batch(qs, 20)
-        finally:
-            config.set_prune_route_min_elide(old)
+        got = idx.search_batch(qs, 20)
         vb = it.VerticalBatch.from_rows(rows)
         want = it.batch_knn_dot(qs, vb, 20)
         assert _sets_equal(got.indices, want.indices)
@@ -283,8 +278,8 @@ class TestIVFSurvivorKillers:
         # planner; any arm flip diverges. Queries are deliberately
         # UN-normalized (scale 7) so the cosine unit-normalize arm is
         # load-bearing, and bf16 uses values that round visibly.
-        from innr_tpu.kernels.knn import _unit_queries
         from innr_tpu.prune import plan_survivors
+        from innr_tpu.scan import unit_queries as _unit_queries
 
         rows, centers = _clustered(rng, n=4_000, d=16, nc=8)
         ivf = IVFIndex(rows, n_clusters=8, metric=metric, tile_n=256)

@@ -208,7 +208,7 @@ class TestMultihostSweepSurvivors:
 
     def test_initialize_coordinator_only_initializes(self, monkeypatch):
         # multihost.py:70 [boolop And -> Or]: coordinator given but
-        # num_processes absent must STILL initialize (TPU pods
+        # num_processes absent must STILL initialize (pods
         # auto-discover the rest); the mutant early-returns.
         import jax
 

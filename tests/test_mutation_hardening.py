@@ -17,6 +17,163 @@ import jax.numpy as jnp
 
 import innr_tpu as it
 
+from innr_tpu import scan
+from innr_tpu.kernels import triton_knn
+
+
+def _force_kernel_route(monkeypatch):
+    """Route every dense scan the Triton kernel can take to the kernel,
+    run in Pallas interpret mode (the CPU stand-in for the card)."""
+    import functools
+
+    from innr_tpu import route as route_mod
+
+    real = triton_knn.knn_keys
+    if getattr(real, "interpreted", False):
+        return
+
+    def route(family, platform, n, k, dtype, n_q, d=None):
+        ok = (family == "dense" and 0 < k <= triton_knn.K_MAX
+              and d is not None and triton_knn.d_chunk(int(d)) > 0)
+        return "triton" if ok else "xla"
+
+    @functools.wraps(real)
+    def interpreted(*args, **kwargs):
+        return real(*args, **{**kwargs, "interpret": True})
+
+    interpreted.interpreted = True
+    monkeypatch.setattr(route_mod, "route", route)
+    monkeypatch.setattr(triton_knn, "knn_keys", interpreted)
+
+
+def _pad16(x):
+    """Zero features up to a multiple of 16 (no score or norm changes)."""
+    x = jnp.asarray(x)
+    pad = -x.shape[-1] % 16
+    if pad == 0:
+        return x
+    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+
+
+class _kknn:
+    """The fused dense entry points these killers were written against,
+    run on the Triton kernel in interpret mode (the GPU route); k past the
+    kernel's cap takes the XLA route, as the router does."""
+
+    @staticmethod
+    def _scan(qs, rows, aux, k, mode):
+        qs = jnp.asarray(qs, jnp.float32)
+        rows = jnp.asarray(rows)
+        if k > triton_knn.K_MAX:
+            return scan.knn(qs, rows, aux, k, mode, route="xla")
+        keys, idx = triton_knn.knn_keys(_pad16(qs), _pad16(rows), aux, k,
+                                        mode, interpret=True)
+        return scan.decode_keys(keys, mode, qs, rows.shape[0], "triton"), idx
+
+    @staticmethod
+    def _norms2(rows):
+        r = jnp.asarray(rows).astype(jnp.float32)
+        return jnp.sum(r * r, axis=1)
+
+    @classmethod
+    def fused_knn_dot_batch(cls, qs, rows, k):
+        return cls._scan(qs, rows, None, k, "dot")
+
+    @classmethod
+    def fused_knn_dot(cls, q, rows, k):
+        v, i = cls._scan(jnp.asarray(q)[None], rows, None, k, "dot")
+        return v[0], i[0]
+
+    @classmethod
+    def fused_knn_l2_batch(cls, qs, rows, k, norms2=None):
+        n2 = cls._norms2(rows) if norms2 is None else norms2
+        return cls._scan(qs, rows, n2, k, "l2")
+
+    @classmethod
+    def fused_knn_l2(cls, q, rows, k, norms2=None):
+        v, i = cls.fused_knn_l2_batch(jnp.asarray(q)[None], rows, k, norms2)
+        return v[0], i[0]
+
+    @classmethod
+    def fused_knn_l2_masked_batch(cls, qs, rows, mask, k, norms2=None):
+        n2 = cls._norms2(rows) if norms2 is None else norms2
+        aux = jnp.stack([n2, jnp.asarray(mask, jnp.float32)])
+        return cls._scan(qs, rows, aux, k, "l2m")
+
+    @classmethod
+    def fused_knn_cosine_batch(cls, qs, rows, k, inv=None):
+        inv = scan.inv_norms(jnp.asarray(rows)) if inv is None else inv
+        qs = scan.unit_queries(jnp.asarray(qs, jnp.float32))
+        return cls._scan(qs, rows, inv, k, "cosine")
+
+    inv_norms = staticmethod(scan.inv_norms)
+    _unit_queries = staticmethod(scan.unit_queries)
+    _invert_total_key = staticmethod(scan.invert_total_key)
+
+
+class _kpruned:
+    """Tile-skip scans: scan.planned_knn on the Triton route (interpret
+    mode); k past the kernel's cap takes the XLA full scan."""
+
+    @staticmethod
+    def _run(qs, rows, aux, summary, k, mode):
+        from innr_tpu.prune import TileSummary
+
+        qs = jnp.asarray(qs, jnp.float32)
+        rows = jnp.asarray(rows)
+        if k > triton_knn.K_MAX:
+            return scan.knn(qs, rows, aux, k, mode, route="xla")
+        s = TileSummary(summary.tile_n, _pad16(summary.centroids),
+                        summary.radii, summary.counts, summary.n_rows)
+        return scan.planned_knn(_pad16(qs), _pad16(rows), aux, s, k, mode,
+                                route="triton", interpret=True)
+
+    @classmethod
+    def fused_knn_dot_pruned_batch(cls, qs, rows, summary, k):
+        return cls._run(qs, rows, None, summary, k, "dot")
+
+    @classmethod
+    def fused_knn_l2_pruned_batch(cls, qs, rows, summary, k, norms2=None):
+        n2 = _kknn._norms2(rows) if norms2 is None else norms2
+        return cls._run(qs, rows, n2, summary, k, "l2")
+
+    @classmethod
+    def fused_knn_cosine_pruned_batch(cls, qs, rows, summary_norm, k,
+                                      inv=None):
+        inv = scan.inv_norms(jnp.asarray(rows)) if inv is None else inv
+        qs = scan.unit_queries(jnp.asarray(qs, jnp.float32))
+        return cls._run(qs, rows, inv, summary_norm, k, "cosine")
+
+
+class _kham:
+    """Packed popcount scoring, now the XLA reductions of ops/."""
+
+    @staticmethod
+    def batch_hamming_words(q, corpus):
+        return it.batch_binary_hamming(q, corpus)
+
+    @staticmethod
+    def batch_ternary_dot_words(qp, qn, pos, neg):
+        import types
+
+        q = types.SimpleNamespace(pos=jnp.asarray(qp, jnp.uint32),
+                                  neg=jnp.asarray(qn, jnp.uint32))
+        return it.batch_ternary_dot(q, pos, neg)
+
+
+class _kmax:
+    """MaxSim scoring, now the einsum of ops/maxsim.py."""
+
+    @staticmethod
+    def fused_maxsim_scores(q, docs, doc_mask=None):
+        return it.batch_maxsim(jnp.asarray(q)[None], docs,
+                               doc_mask=doc_mask)[0]
+
+    @staticmethod
+    def fused_maxsim_scores_batch(qs, docs, doc_mask=None):
+        return it.batch_maxsim(qs, docs, doc_mask=doc_mask)
+
+
 
 class TestScalarAffineScoreValues:
     """Kills scalar.py `(alpha/255)*mixed + offset*sum(q)` sign flips:
@@ -105,15 +262,14 @@ class TestForceReferenceU8Multi:
 
     def test_forced_reference_never_calls_fused(self, rng, monkeypatch):
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
         from innr_tpu.ops.scalar import batch_knn_u8_multi
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         calls = []
         monkeypatch.setattr(
-            kknn, "fused_knn_u8_batch",
+            triton_knn, "knn_keys",
             lambda *a, **kw: calls.append(1) or (_ for _ in ()).throw(
-                AssertionError("fused path used under force_reference")
+                AssertionError("kernel used under force_reference")
             ),
         )
         rows = rng.standard_normal((64, 16)).astype(np.float32)
@@ -181,51 +337,6 @@ class TestClusterOrderGroupsClusters:
         assert changes <= 10, changes
 
 
-class TestFusedGeometryBudget:
-    """Kills knn.py tile-geometry mutants: the VMEM budget model only
-    fails on real silicon (scoped-VMEM OOM), so its invariants are
-    asserted directly against the 16 MB wall."""
-
-    @pytest.mark.parametrize("dtype_name,n_q,d,k", [
-        ("uint8", 32, 768, 10),
-        ("float32", 32, 128, 10),
-        ("float32", 32, 128, 2048),
-        ("float32", 512, 128, 512),
-        ("bfloat16", 32, 128, 10),
-        ("float32", 1, 1536, 4096),
-    ])
-    def test_tile_plus_topk_fits_scoped_vmem(self, dtype_name, n_q, d, k):
-        from innr_tpu.kernels.knn import _K_LANE, _Q_TILE, plan_geometry
-        from innr_tpu.utils.padding import round_up
-
-        dtype = getattr(jnp, dtype_name)
-        tile_n, bytes_per_row = plan_geometry(10_000_000, d, dtype, n_q, k)
-        topk = 16 * round_up(n_q, _Q_TILE) * round_up(k, _K_LANE)
-        # Only the raw dtype tile is double-buffered by the pipeline;
-        # widen temps / score lanes are single compute-scoped copies.
-        raw = {"uint8": 1, "bfloat16": 2, "float32": 4}[dtype_name] * d
-        live = tile_n * (bytes_per_row + raw) + topk  # 2x raw + 1x rest
-        assert live <= 16 * 1024 * 1024, live
-        assert tile_n % 128 == 0
-        assert tile_n >= 128
-
-    def test_query_batch_term_matters(self):
-        """The per-lane query term must scale with the batch: a Q=512
-        batch must get a smaller corpus tile than Q=1 at the same d."""
-        from innr_tpu.kernels.knn import plan_geometry
-
-        t1, _ = plan_geometry(10_000_000, 128, jnp.float32, 1, 10)
-        t512, _ = plan_geometry(10_000_000, 128, jnp.float32, 512, 10)
-        assert t512 < t1
-
-    def test_large_k_shrinks_tiles(self):
-        from innr_tpu.kernels.knn import plan_geometry
-
-        t_small, _ = plan_geometry(10_000_000, 128, jnp.float32, 32, 10)
-        t_large, _ = plan_geometry(10_000_000, 128, jnp.float32, 32, 4096)
-        assert t_large <= t_small
-
-
 class TestSweepRound2Killers:
     """Killers for the second sampled sweep's real survivors."""
 
@@ -259,8 +370,8 @@ class TestSweepRound2Killers:
         exactly the live tiles — verified end-to-end under STRONG pruning
         (queries inside one cluster of a separable corpus)."""
         from innr_tpu import prune
-        from innr_tpu.kernels import knn as kknn
-        from innr_tpu.kernels import pruned_knn as kpruned
+        kknn = _kknn
+        kpruned = _kpruned
 
         centers = np.eye(8, 16, dtype=np.float32) * 50
         assign = np.sort(rng.integers(0, 8, 4096))
@@ -333,7 +444,7 @@ class TestSweepRound3Killers:
         from innr_tpu import config
         from innr_tpu.ops.scalar import batch_knn_u8_multi
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         rows = rng.standard_normal((64, 16)).astype(np.float32) + 1.0
         qs = rng.standard_normal((2, 16)).astype(np.float32)
         params = it.QuantizationParams.fit(rows)
@@ -365,20 +476,19 @@ class TestSweepRound4Killers:
 
     def test_segmented_force_reference_never_fused(self, rng, monkeypatch):
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         monkeypatch.setattr(
-            kknn, "fused_knn_keys_batch",
+            triton_knn, "knn_keys",
             lambda *a, **kw: (_ for _ in ()).throw(
-                AssertionError("fused under force_reference")
+                AssertionError("kernel under force_reference")
             ),
         )
-        sc = it.SegmentedCorpus(6)
-        sc.add(rng.standard_normal((64, 6)).astype(np.float32))
+        sc = it.SegmentedCorpus(16)
+        sc.add(rng.standard_normal((64, 16)).astype(np.float32))
         config.force_reference(True)
         try:
-            scores, ids = sc.knn_dot(rng.standard_normal(6).astype(np.float32), 3)
+            scores, ids = sc.knn_dot(rng.standard_normal(16).astype(np.float32), 3)
         finally:
             config.force_reference(False)
         assert len(ids) == 3
@@ -491,13 +601,12 @@ class TestSweepRound5Killers:
 
     def test_binary_knn_force_reference(self, rng, monkeypatch):
         from innr_tpu import config
-        from innr_tpu.kernels import packed_knn as kp
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         monkeypatch.setattr(
-            kp, "fused_binary_knn",
+            triton_knn, "knn_keys",
             lambda *a, **kw: (_ for _ in ()).throw(
-                AssertionError("fused under force_reference")
+                AssertionError("kernel under force_reference")
             ),
         )
         rows = rng.standard_normal((64, 32)).astype(np.float32)
@@ -609,8 +718,8 @@ class TestSeed0SweepSurvivors:
         # twice and duplicate its rows in the running best. Exactness +
         # uniqueness over a plan that actually prunes kills it.
         from innr_tpu import prune
-        from innr_tpu.kernels import knn as kknn
-        from innr_tpu.kernels import pruned_knn as kpruned
+        kknn = _kknn
+        kpruned = _kpruned
 
         d = 16
         rows = rng.standard_normal((512, d)).astype(np.float32)
@@ -659,7 +768,7 @@ class TestSeed0SweepSurvivors:
         # aux block must gate every query's keys (mask polarity `> 0.0`
         # and the aux-row slice are only observable when masked rows
         # would otherwise win).
-        from innr_tpu.kernels import knn as kknn
+        kknn = _kknn
 
         n, d, k = 300, 12, 6
         rows = rng.standard_normal((n, d)).astype(np.float32)
@@ -685,7 +794,7 @@ class TestSeed0TriageB:
         # flip, values vs the per-pair oracle can.
         from innr_tpu import config
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         rows = rng.standard_normal((40, 16)).astype(np.float32) + 1.0
         q = rng.standard_normal(16).astype(np.float32)
         params = it.QuantizationParams.fit(rows)
@@ -698,75 +807,76 @@ class TestSeed0TriageB:
             assert score == pytest.approx(want, rel=1e-5)
 
     def test_u8_single_query_gate_clauses(self, rng, monkeypatch):
-        # scalar.py dispatch gate `n >= MIN_ROWS and not forced`: under
-        # force_reference the fused kernel must NOT run even on a large
-        # corpus (an `or` mutant would still take the fused arm).
+        # scalar.py route: under force_reference the kernel must NOT run
+        # even where the route would take it.
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kern
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         rows = rng.standard_normal((32, 16)).astype(np.float32)
         q = rng.standard_normal(16).astype(np.float32)
         params = it.QuantizationParams.fit(rows)
         corpus = it.QuantizedU8Batch.quantize(rows, params)
 
         def boom(*a, **k):
-            raise AssertionError("fused u8 kernel under force_reference")
+            raise AssertionError("u8 kernel under force_reference")
 
-        monkeypatch.setattr(kern, "fused_knn_u8_batch", boom)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         config.force_reference(True)
         try:
             res = it.batch_knn_u8(q, corpus, params, 3)
         finally:
             config.force_reference(False)
         assert len(res) == 3
+        with pytest.raises(AssertionError, match="u8 kernel"):
+            it.batch_knn_u8(q, corpus, params, 3)  # route taken otherwise
 
     def test_slot_fused_gate_boundary_inclusive(self, rng, monkeypatch):
-        # slot.py `n >= MIN_ROWS_PALLAS`: the boundary corpus size must
-        # take the fused path (`>` would silently fall back at n == MIN).
-        from innr_tpu import config
-        from innr_tpu.ops.slot import SketchCorpus, _use_fused_slot
+        # The slot family has no kernel: its route is XLA at every size,
+        # on every platform, and the sketches stay in one layout.
+        from innr_tpu import route
+        from innr_tpu.ops.slot import SketchCorpus
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 16)
+        for n in (15, 16, 10**8):
+            assert route.route("slot", "gpu", n, 2, jnp.uint32, 1, 8) == "xla"
         sc = SketchCorpus(rng.integers(0, 2**32, (16, 8), dtype=np.uint32))
-        assert _use_fused_slot(16, 2, sc.slots_t, 1)
-        assert not _use_fused_slot(15, 2, sc.slots_t, 1)
+        assert sc.memory_bytes() == 16 * 8 * 4
 
     def test_segmented_fused_gate_boundary_inclusive(self, rng, monkeypatch):
-        # segmented.py per-segment gate `n_seg >= MIN_ROWS_PALLAS`: a
-        # boundary-sized segment must scan fused.
-        from innr_tpu import config
+        # segmented.py resolves each segment's route ONCE and hands the
+        # same route to the scan and to the key decode.
         from innr_tpu.parallel import _scan
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+        _force_kernel_route(monkeypatch)
         seen = []
         real = _scan.local_scan_keys
 
-        def spy(qs, rows, aux, n_total, k, mode, use_fused, base):
-            seen.append(use_fused)
-            return real(qs, rows, aux, n_total, k, mode, use_fused, base)
+        def spy(qs, rows, aux, n_total, k, mode, base, route=None):
+            seen.append(route)
+            return real(qs, rows, aux, n_total, k, mode, base, route=route)
 
         monkeypatch.setattr(_scan, "local_scan_keys", spy)
-        d = 8
+        d = 16
         sc = it.SegmentedCorpus(d)
-        sc.add(rng.standard_normal((64, d)).astype(np.float32))
-        sc.knn_dot(rng.standard_normal((2, d)).astype(np.float32), 3)
-        assert seen == [True]
+        rows = rng.standard_normal((64, d)).astype(np.float32)
+        sc.add(rows)
+        qs = rng.standard_normal((2, d)).astype(np.float32)
+        scores, ids = sc.knn(qs, 3)
+        assert seen == ["triton"]
+        want = np.argsort(((qs[:, None] - rows[None]) ** 2).sum(-1),
+                          axis=1, kind="stable")[:, :3]
+        np.testing.assert_array_equal(np.asarray(ids), want)
 
     def test_slot_knn_batch_k_nonpositive(self, rng, monkeypatch):
         # slot.py `n == 0 or k <= 0`: k == 0 AND k < 0 must both return
-        # (Q, 0) WITHOUT touching a kernel (a `k < 0` mutant would hand
-        # the fused scan k=0 on a fused-eligible corpus).
-        from innr_tpu import config
-        from innr_tpu.kernels import slot_knn as kslot
+        # (Q, 0) without scoring anything.
         from innr_tpu.ops.slot import SketchCorpus, slot_knn_u32_batch
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
 
         def boom(*a, **kw):
-            raise AssertionError("fused slot kernel invoked with k <= 0")
+            raise AssertionError("a kernel invoked with k <= 0")
 
-        monkeypatch.setattr(kslot, "fused_slot_knn_batch", boom)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         corpus = SketchCorpus(rng.integers(0, 2**32, (10, 8), dtype=np.uint32))
         qs = rng.integers(0, 2**32, (3, 8), dtype=np.uint32)
         for k in (0, -2):
@@ -777,7 +887,7 @@ class TestSeed0TriageB:
         # maxsim_kernel.py dtype coercion `!= bfloat16`: non-array doc
         # input must be coerced to f32 (an `==` mutant leaves a Python
         # list to crash on .shape).
-        from innr_tpu.kernels.maxsim_kernel import fused_maxsim_scores_batch
+        fused_maxsim_scores_batch = _kmax.fused_maxsim_scores_batch
 
         q = rng.standard_normal((2, 3, 8)).astype(np.float32)
         docs = rng.standard_normal((4, 5, 8)).astype(np.float32)
@@ -848,8 +958,8 @@ class TestSeed0TriageB:
         # fast threshold to "prune nothing" when no tile holds >= k
         # rows), the result must be bit-identical to the full scan.
         from innr_tpu import prune
-        from innr_tpu.kernels import knn as kknn
-        from innr_tpu.kernels import pruned_knn as kpruned
+        kknn = _kknn
+        kpruned = _kpruned
 
         d = 8
         rows = rng.standard_normal((512, d)).astype(np.float32)
@@ -1032,34 +1142,35 @@ class TestSeed0TriageC:
             )
 
     def test_maxsim_knn_dispatch_boundaries(self, rng, monkeypatch):
-        # maxsim.py fused gate `n >= max(MIN_ROWS_PALLAS // 16, 64)`:
-        # pin BOTH constants. MIN=2048 puts the boundary at 128 (the //16
-        # term governs); MIN=256 puts it at 64 (the floor governs).
-        from innr_tpu import config
-        from innr_tpu.kernels import maxsim_kernel as kern
-        from innr_tpu.ops.maxsim import maxsim_knn
+        # MaxSim has one route (the einsum) at every corpus size: no
+        # size boundary exists, results match the float64 oracle on
+        # both sides of the old one, and force_reference changes nothing.
+        from innr_tpu import config, route
 
-        calls = []
-        real = kern.fused_maxsim_knn
-
-        def spy(*a, **kw):
-            calls.append(1)
-            return real(*a, **kw)
-
-        monkeypatch.setattr(kern, "fused_maxsim_knn", spy)
-        q = rng.standard_normal((3, 8)).astype(np.float32)
+        qs = rng.standard_normal((3, 8)).astype(np.float32)
 
         def docs(n):
             return rng.standard_normal((n, 4, 8)).astype(np.float32)
 
-        for min_rows, boundary in ((2048, 128), (256, 64)):
-            monkeypatch.setattr(config, "MIN_ROWS_PALLAS", min_rows)
-            calls.clear()
-            maxsim_knn(q, docs(boundary), 3)
-            assert calls, f"n == {boundary} must take the fused kernel"
-            calls.clear()
-            maxsim_knn(q, docs(boundary - 1), 3)
-            assert not calls, f"n == {boundary - 1} must stay unfused"
+        def oracle(q, d):
+            pair = np.einsum("td,nsd->nts", q.astype(np.float64),
+                             d.astype(np.float64))
+            return pair.max(axis=2).sum(axis=1)
+
+        for n in (63, 64, 127, 128):
+            assert route.route("maxsim", "gpu", n, 3, jnp.float32, 1, 8) == "xla"
+            d = docs(n)
+            got_v, got_i = it.maxsim_knn(qs, d, 3)
+            config.force_reference(True)
+            try:
+                ref_v, ref_i = it.maxsim_knn(qs, d, 3)
+            finally:
+                config.force_reference(False)
+            np.testing.assert_array_equal(got_i, ref_i)
+            for b, q in enumerate(qs if qs.ndim == 3 else qs[None]):
+                want = np.argsort(-oracle(q, d), kind="stable")[:3]
+                got = got_i[b] if qs.ndim == 3 else got_i
+                np.testing.assert_array_equal(got, want)
 
     def test_minhash_dtype_corpus_is_authoritative(self, rng):
         # slot.py `_minhash_dtype` `== np.uint16`: a u16 QUERY against a
@@ -1121,22 +1232,16 @@ class TestSeed2Survivors:
             binary_knn_batch(np.zeros((3, 1), np.uint32), corpus, 2)
 
     def test_binary_knn_k_zero_never_reaches_kernel(self, rng, monkeypatch):
-        # binary.py `n == 0 or k == 0` guards (single + batch): the jnp
-        # fallback tolerates k == 0, so an `and` mutant is only
-        # observable on the FUSED arm — k == 0 on a fused-eligible
-        # corpus must return empty WITHOUT invoking a Pallas kernel
-        # (whose k=0 block specs are invalid on silicon).
-        from innr_tpu import config
-        from innr_tpu.kernels import packed_knn as kern
+        # binary.py `n == 0 or k == 0` guards (single + batch): k == 0
+        # must return empty without scoring anything.
         from innr_tpu.ops.binary import binary_knn, binary_knn_batch
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
 
         def boom(*a, **kw):
-            raise AssertionError("fused binary kernel invoked with k == 0")
+            raise AssertionError("a kernel invoked with k == 0")
 
-        monkeypatch.setattr(kern, "fused_binary_knn", boom)
-        monkeypatch.setattr(kern, "fused_binary_knn_batch", boom)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         rows = rng.standard_normal((32, 64)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows)
         queries = it.encode_binary_batch(rows[:2])
@@ -1208,7 +1313,7 @@ class TestSeed2Survivors:
         # unit-row summary (|q_hat| = 1). Pin the interface so a mode
         # pass-through can't silently switch the planner's bound family.
         from innr_tpu import prune
-        from innr_tpu.kernels import pruned_knn as kpruned
+        kpruned = _kpruned
 
         seen = []
         real = prune.plan_survivors
@@ -1253,9 +1358,6 @@ class TestFusedGateContracts:
         return calls
 
     def _cases(self, rng):
-        from innr_tpu.kernels import hamming as kham
-        from innr_tpu.kernels import packed_knn as kpak
-
         def bin_args(n):
             rows = rng.standard_normal((n, 64)).astype(np.float32)
             return it.PackedBinaryBatch.encode(rows), rows
@@ -1265,79 +1367,74 @@ class TestFusedGateContracts:
             return it.PackedTernaryBatch.encode(rows, 0.3), rows
 
         return [
-            ("binary_knn", kpak, "fused_binary_knn", True,
+            ("binary_knn", "binary",
              lambda n, k: it.binary_knn(
                  it.encode_binary(bin_args(n)[1][0]), bin_args(n)[0], k)),
-            ("binary_knn_batch", kpak, "fused_binary_knn_batch", True,
+            ("binary_knn_batch", "binary",
              lambda n, k: it.ops.binary.binary_knn_batch(
                  it.encode_binary_batch(bin_args(n)[1][:2]),
                  bin_args(n)[0], k)),
-            ("batch_binary_hamming", kham, "batch_hamming_words", False,
+            ("batch_binary_hamming", "binary",
              lambda n, k: it.batch_binary_hamming(
                  it.encode_binary(bin_args(n)[1][0]).words,
                  bin_args(n)[0].words)),
-            ("ternary_knn", kpak, "fused_ternary_knn", True,
+            ("ternary_knn", "ternary",
              lambda n, k: it.ternary_knn(
                  it.encode_ternary(tern_args(n)[1][0], 0.3),
                  tern_args(n)[0], k)),
-            ("ternary_knn_batch", kpak, "fused_ternary_knn_batch", True,
+            ("ternary_knn_batch", "ternary",
              lambda n, k: it.ops.ternary.ternary_knn_batch(
                  [it.encode_ternary(r, 0.3) for r in tern_args(n)[1][:2]],
                  tern_args(n)[0], k)),
-            ("batch_ternary_dot", kham, "batch_ternary_dot_words", False,
+            ("batch_ternary_dot", "ternary",
              lambda n, k: it.batch_ternary_dot(
                  it.encode_ternary(tern_args(n)[1][0], 0.3),
                  tern_args(n)[0].pos, tern_args(n)[0].neg)),
         ]
 
     def test_boundary_inclusive_and_forced(self, rng, monkeypatch):
-        from innr_tpu import config
+        # The packed families have no kernel: at every size the route is
+        # XLA, even with the kernel route forced or the reference forced.
+        from innr_tpu import config, route
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", self.MIN)
-        for name, mod, attr, _, call in self._cases(rng):
-            calls = self._spy(monkeypatch, mod, attr)
+        _force_kernel_route(monkeypatch)
+        calls = self._spy(monkeypatch, triton_knn, "knn_keys")
+        for name, family, call in self._cases(rng):
+            for n in (self.MIN - 1, self.MIN, 10**8):
+                assert route.route(family, "gpu", n, 3, jnp.uint32, 1,
+                                   64) == "xla", name
             call(self.MIN, 3)
-            assert calls, f"{name}: n == MIN must take the fused path"
-            calls.clear()
-            call(self.MIN - 1, 3)
-            assert not calls, f"{name}: n == MIN-1 must stay unfused"
             config.force_reference(True)
             try:
                 call(self.MIN, 3)
             finally:
                 config.force_reference(False)
-            assert not calls, f"{name}: force_reference must win"
+            assert not calls, f"{name}: no kernel may run"
 
     def test_k_cap_routes_to_fallback(self, rng, monkeypatch):
-        from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        # The dense kernel's k cap is inclusive: k == TRITON_MAX_K takes
+        # the kernel, one past it the XLA route (whose top_k has no cap).
+        from innr_tpu import route
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", self.MIN)
-        monkeypatch.setattr(kknn, "single_pass_k", lambda n_q: 4)
-        for name, mod, attr, has_cap, call in self._cases(rng):
-            if not has_cap:
-                continue
-            calls = self._spy(monkeypatch, mod, attr)
-            call(self.MIN, 4)
-            assert calls, f"{name}: k == cap must fuse"
-            calls.clear()
-            call(self.MIN, 5)
-            assert not calls, f"{name}: k > cap must take the fallback"
+        cap = route.TRITON_MAX_K
+        n = route.TRITON_MIN_ROWS
+        for dt in (jnp.float32, jnp.bfloat16, jnp.uint8):
+            assert route.route("dense", "gpu", n, cap, dt, 4, 128) == "triton"
+            assert route.route("dense", "gpu", n, cap + 1, dt, 4, 128) == "xla"
+        for name, family, call in self._cases(rng):
+            got = call(self.MIN, 5)
+            assert len(np.atleast_1d(got[1] if isinstance(got, tuple) else got)) > 0
 
     def test_k_zero_never_reaches_ternary_kernel(self, rng, monkeypatch):
-        # ternary twin of the binary k==0 killer (the jnp arm tolerates
-        # k=0; only the fused arm makes the or-guard observable).
-        from innr_tpu import config
-        from innr_tpu.kernels import packed_knn as kern
+        # ternary twin of the binary k==0 killer.
         from innr_tpu.ops.ternary import ternary_knn_batch
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
 
         def boom(*a, **kw):
-            raise AssertionError("fused ternary kernel invoked with k == 0")
+            raise AssertionError("a kernel invoked with k == 0")
 
-        monkeypatch.setattr(kern, "fused_ternary_knn", boom)
-        monkeypatch.setattr(kern, "fused_ternary_knn_batch", boom)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         rows = rng.standard_normal((32, 64)).astype(np.float32)
         corpus = it.PackedTernaryBatch.encode(rows, 0.3)
         q = it.encode_ternary(rows[0], 0.3)
@@ -1348,15 +1445,13 @@ class TestFusedGateContracts:
 
     def test_maxsim_forced_reference_stays_unfused(self, rng, monkeypatch):
         from innr_tpu import config
-        from innr_tpu.kernels import maxsim_kernel as kern
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 256)  # thr = 64
+        _force_kernel_route(monkeypatch)
 
         def boom(*a, **kw):
-            raise AssertionError("fused maxsim under force_reference")
+            raise AssertionError("a kernel under force_reference")
 
-        monkeypatch.setattr(kern, "fused_maxsim_knn", boom)
-        monkeypatch.setattr(kern, "fused_maxsim_knn_batch", boom, raising=False)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         q = rng.standard_normal((3, 8)).astype(np.float32)
         docs = rng.standard_normal((64, 4, 8)).astype(np.float32)
         config.force_reference(True)
@@ -1446,44 +1541,41 @@ class TestSeed5Survivors:
     """Killers for the unseen seed-5 sample (eleventh triage)."""
 
     def test_maxsim_knn_batch_dispatch_boundary(self, rng, monkeypatch):
-        # maxsim.py:209: the BATCH form's gate gets the same boundary
-        # pins as the single-query form.
-        from innr_tpu import config
-        from innr_tpu.kernels import maxsim_kernel as kern
+        # MaxSim has one route (the einsum) at every corpus size: no
+        # size boundary exists, results match the float64 oracle on
+        # both sides of the old one, and force_reference changes nothing.
+        from innr_tpu import config, route
 
-        calls = []
-        real = kern.fused_maxsim_knn_batch
-
-        def spy(*a, **kw):
-            calls.append(1)
-            return real(*a, **kw)
-
-        monkeypatch.setattr(kern, "fused_maxsim_knn_batch", spy)
         qs = rng.standard_normal((2, 3, 8)).astype(np.float32)
 
         def docs(n):
             return rng.standard_normal((n, 4, 8)).astype(np.float32)
 
-        for min_rows, boundary in ((2048, 128), (256, 64)):
-            monkeypatch.setattr(config, "MIN_ROWS_PALLAS", min_rows)
-            calls.clear()
-            it.maxsim_knn_batch(qs, docs(boundary), 3)
-            assert calls, f"n == {boundary} must take the fused kernel"
-            calls.clear()
-            it.maxsim_knn_batch(qs, docs(boundary - 1), 3)
-            assert not calls, f"n == {boundary - 1} must stay unfused"
+        def oracle(q, d):
+            pair = np.einsum("td,nsd->nts", q.astype(np.float64),
+                             d.astype(np.float64))
+            return pair.max(axis=2).sum(axis=1)
+
+        for n in (63, 64, 127, 128):
+            assert route.route("maxsim", "gpu", n, 3, jnp.float32, 1, 8) == "xla"
+            d = docs(n)
+            got_v, got_i = it.maxsim_knn_batch(qs, d, 3)
             config.force_reference(True)
             try:
-                it.maxsim_knn_batch(qs, docs(boundary), 3)
+                ref_v, ref_i = it.maxsim_knn_batch(qs, d, 3)
             finally:
                 config.force_reference(False)
-            assert not calls, "force_reference must win"
+            np.testing.assert_array_equal(got_i, ref_i)
+            for b, q in enumerate(qs if qs.ndim == 3 else qs[None]):
+                want = np.argsort(-oracle(q, d), kind="stable")[:3]
+                got = got_i[b] if qs.ndim == 3 else got_i
+                np.testing.assert_array_equal(got, want)
 
     def test_total_key_involution_bitexact(self, rng):
-        # kernels/knn.py `_invert_total_key` shift constants: the decode
+        # scan.py `invert_total_key` constants: the decode
         # must invert the encode BIT-EXACTLY for every f32 class —
         # negatives are where the (keys >> 31) >>> 1 mask is live.
-        from innr_tpu.kernels.knn import _invert_total_key
+        _invert_total_key = scan.invert_total_key
         from innr_tpu.utils.order import total_order_key_f32
 
         special = np.array(
@@ -1544,23 +1636,6 @@ class TestSeed5Survivors:
 class TestSeed5SurvivorsB:
     """Killers for the second seed-5 sample (twelfth triage)."""
 
-    def test_ternary_tile_models_both_planes(self):
-        # packed_knn.py `_pick_tile_n(n, 2 * w)`: the ternary tile MUST
-        # budget BOTH sign planes (docstring contract). An under-modeled
-        # factor OOMs the 16 MB scoped VMEM on silicon, invisible to CPU
-        # interpret runs — so the model itself is pinned.
-        from innr_tpu.kernels.packed_knn import (
-            _pick_tile_n, _pick_tile_n_mq, _ternary_tile_n, _ternary_tile_n_mq,
-        )
-
-        for n in (10_000, 1_000_000):
-            for w in (2, 24, 128, 512):
-                assert _ternary_tile_n(n, w) == _pick_tile_n(n, 2 * w)
-                for q in (1, 8, 32):
-                    assert _ternary_tile_n_mq(n, w, q) == _pick_tile_n_mq(
-                        n, 2 * w, q, n_live=4
-                    )
-
     def test_fast_plan_eligibility_excludes_small_tiles(self, rng):
         # prune.py `eligible & ~isnan`: the fast threshold may only come
         # from tiles holding >= k rows. A ragged tile (20 rows) closest
@@ -1599,12 +1674,12 @@ class TestSeed5SurvivorsB:
         np.testing.assert_array_equal(got_alive, want_alive)
 
     def test_inv_norms_epsilon_boundary_strict(self):
-        # kernels/knn.py inv_norms: a row whose norm is EXACTLY
+        # scan.py inv_norms: a row whose norm is EXACTLY
         # NORM_EPSILON is zero-norm by contract -> inverse 0.0 (the
         # single `ok` guard is strict; it also feeds the divisor, so a
         # relaxed mutant divides by 1e-9 and returns 1e9).
         from innr_tpu.config import NORM_EPSILON
-        from innr_tpu.kernels.knn import inv_norms
+        inv_norms = scan.inv_norms
 
         x = np.float32(NORM_EPSILON)
         assert np.float32(np.sqrt(np.float32(x * x))) == x  # roundtrip
@@ -1744,7 +1819,7 @@ class TestMaxsimKernelExhaustive:
     def test_single_query_accepts_nested_list_docs(self, rng):
         # maxsim_kernel.py:93 dtype coercion in the SINGLE-query scorer
         # (the batch twin is already pinned).
-        from innr_tpu.kernels.maxsim_kernel import fused_maxsim_scores
+        fused_maxsim_scores = _kmax.fused_maxsim_scores
 
         q = rng.standard_normal((3, 8)).astype(np.float32)
         docs = rng.standard_normal((4, 5, 8)).astype(np.float32)
@@ -1763,9 +1838,8 @@ class TestMaxsimKernelExhaustive:
         # zero doc-token rows whose dot is 0 — with ALL real scores
         # negative, an unmasked pad token would wrongly win every max.
         # td = 3 (pads to 8); construction forces every dot negative.
-        from innr_tpu.kernels.maxsim_kernel import (
-            fused_maxsim_scores, fused_maxsim_scores_batch,
-        )
+        fused_maxsim_scores = _kmax.fused_maxsim_scores
+        fused_maxsim_scores_batch = _kmax.fused_maxsim_scores_batch
 
         qs = np.abs(rng.standard_normal((2, 3, 8))).astype(np.float32)
         docs = -np.abs(rng.standard_normal((4, 3, 8))).astype(np.float32)
@@ -1800,7 +1874,7 @@ class TestPackedExhaustive:
         from innr_tpu.ops.binary import binary_knn_batch
         from innr_tpu.ops.ternary import ternary_knn_batch
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 16)
+        _force_kernel_route(monkeypatch)
         d, n, k = 512, 64, 5
         rows = rng.standard_normal((n, d)).astype(np.float32)
         bcorp = it.PackedBinaryBatch.encode(rows)
@@ -1930,8 +2004,8 @@ class TestPruneExhaustive:
         # from the query sit EXACTLY on t0; a >= mutant prunes both tied
         # tiles and the scan returns rows from a far tile instead.
         from innr_tpu import prune
-        from innr_tpu.kernels import knn as kknn
-        from innr_tpu.kernels import pruned_knn as kpruned
+        kknn = _kknn
+        kpruned = _kpruned
 
         d, tile_n = 8, 16
         a = np.zeros(d, np.float32); a[0] = 5.0
@@ -2027,10 +2101,10 @@ class TestSeed7Survivors:
         np.testing.assert_array_equal(scores[1], np.zeros(6, np.float32))
 
     def test_unit_queries_epsilon_boundary(self):
-        # kernels/knn.py _unit_queries: exact-epsilon-norm query row
+        # scan.py unit_queries: exact-epsilon-norm query row
         # becomes the zero row (strict guard), like inv_norms.
         from innr_tpu.config import NORM_EPSILON
-        from innr_tpu.kernels.knn import _unit_queries
+        _unit_queries = scan.unit_queries
 
         eps = np.float32(NORM_EPSILON)
         qs = np.zeros((2, 4), np.float32)
@@ -2054,7 +2128,7 @@ class TestSeed7Survivors:
         # (k,) arrays; 2-D -> (Q, k).
         from innr_tpu import config
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+        _force_kernel_route(monkeypatch)
         rows = rng.standard_normal((512, 8)).astype(np.float32)
         vb = it.VerticalBatch.from_rows(rows)
         r1 = it.batch_knn_dot(rows[0], vb, 3, prune=True)
@@ -2120,7 +2194,7 @@ class TestKnnGateAndDispatchContracts:
         from innr_tpu import batch as B
         from innr_tpu import config
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         vb = self._vb(rng)
         q1 = rng.standard_normal(16).astype(np.float32)
         q2 = rng.standard_normal((3, 16)).astype(np.float32)
@@ -2152,27 +2226,33 @@ class TestKnnGateAndDispatchContracts:
 
     def test_fused_gate_boundary_inclusive(self, rng, monkeypatch):
         from innr_tpu import batch as B
-        from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu import route
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 16)
+        # The route's size gate is boundary-inclusive...
+        m = route.TRITON_MIN_ROWS
+        assert route.route("dense", "gpu", m, 2, jnp.float32, 1, 8 * 16) == "triton"
+        assert route.route("dense", "gpu", m - 1, 2, jnp.float32, 1, 128) == "xla"
+        # ...and batch_knn follows the route it reports.
+        _force_kernel_route(monkeypatch)
         calls = []
-        real = kknn.fused_knn_l2
+        real = triton_knn.knn_keys
         monkeypatch.setattr(
-            kknn, "fused_knn_l2",
-            lambda *a, **kw: calls.append("fused") or real(*a, **kw),
+            triton_knn, "knn_keys",
+            lambda *a, **kw: calls.append("kernel") or real(*a, **kw),
         )
-        q = rng.standard_normal(8).astype(np.float32)
-        B.batch_knn(q, self._vb(rng, n=15, d=8), 2)
-        assert calls == []          # below the gate: reference path
-        B.batch_knn(q, self._vb(rng, n=16, d=8), 2)
-        assert calls == ["fused"]   # boundary-INCLUSIVE fuse
+        q = rng.standard_normal(16).astype(np.float32)
+        B.batch_knn(q, self._vb(rng, n=15, d=16), 2)
+        assert calls == ["kernel"]
+        calls.clear()
+        q8 = rng.standard_normal(8).astype(np.float32)
+        B.batch_knn(q8, self._vb(rng, n=16, d=8), 2)
+        assert calls == []          # width 8 has no kernel chunk: XLA
 
     def test_prune_and_fused_ndim_dispatch_parity(self, rng, monkeypatch):
         from innr_tpu import batch as B
         from innr_tpu import config
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         vb = self._vb(rng)
         q1 = rng.standard_normal(16).astype(np.float32)
         q2 = rng.standard_normal((3, 16)).astype(np.float32)
@@ -2424,36 +2504,33 @@ class TestTwoStagePolicyContracts:
         assert calls == ["fq"]
 
     def test_matryoshka_fused_gate_boundary(self, rng, monkeypatch):
-        from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu import config, route
         from innr_tpu.pipeline import CoarseConfig, TwoStageIndex
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 16)
+        # The route's size boundary is inclusive.
+        m = route.TRITON_MIN_ROWS
+        assert route.route("dense", "gpu", m, 8, jnp.float32, 2, 16) == "triton"
+        assert route.route("dense", "gpu", m - 1, 8, jnp.float32, 2, 16) == "xla"
+        _force_kernel_route(monkeypatch)
         calls = []
-        real1, realb = kknn.fused_knn_dot, kknn.fused_knn_dot_batch
-        monkeypatch.setattr(kknn, "fused_knn_dot",
-                            lambda *a, **k: calls.append("s") or real1(*a, **k))
-        monkeypatch.setattr(kknn, "fused_knn_dot_batch",
-                            lambda *a, **k: calls.append("b") or realb(*a, **k))
-        cfg = CoarseConfig(kind="matryoshka", prefix_dims=4)
-        q2 = np.stack([self.Q, self.Q])
-
-        small = TwoStageIndex(
-            rng.standard_normal((15, 4)).astype(np.float32), cfg)
-        small.search(self.Q, 2); small.search_batch(q2, 2)
-        assert calls == []            # below the gate: matmul arm
-
-        big = TwoStageIndex(
-            rng.standard_normal((16, 4)).astype(np.float32), cfg)
-        big.search(self.Q, 2); big.search_batch(q2, 2)
-        # Boundary-INCLUSIVE fuse; search() routes through the batch
-        # kernel (Q=1) since the round-5 one-dispatch fusion.
+        real = triton_knn.knn_keys
+        monkeypatch.setattr(triton_knn, "knn_keys",
+                            lambda *a, **k: calls.append("b") or real(*a, **k))
+        cfg = CoarseConfig(kind="matryoshka", prefix_dims=16)
+        q = rng.standard_normal(32).astype(np.float32)
+        q2 = np.stack([q, q])
+        big = TwoStageIndex(rng.standard_normal((40, 32)).astype(np.float32), cfg)
+        r1 = big.search(q, 2)
+        rb = big.search_batch(q2, 2)
+        # search() routes through the batch scan (Q=1): one kernel each.
         assert calls == ["b", "b"]
+        np.testing.assert_array_equal(rb.indices[0], r1.indices)
 
         calls.clear()
         config.force_reference(True)
         try:
-            big.search(self.Q, 2); big.search_batch(q2, 2)
+            big.search(q, 2)
+            big.search_batch(q2, 2)
         finally:
             config.force_reference(False)
         assert calls == []            # force_reference wins
@@ -2651,32 +2728,44 @@ class TestLocalScanPaddingContracts:
             assert sorted(top) == sorted(want[qi]), qi
 
     @pytest.mark.parametrize("use_fused", [False, True])
-    def test_plain_l2_masks_padding(self, use_fused):
+    def test_plain_l2_masks_padding(self, use_fused, monkeypatch):
+        # use_fused: the Triton route (interpret mode; features zero-padded
+        # to its 16-wide chunks, which changes no distance).
         import jax.numpy as jnp
         from innr_tpu.parallel._scan import local_scan_keys
         qs, rows, n_total, want = self._setup()
+        route = "xla"
+        if use_fused:
+            _force_kernel_route(monkeypatch)
+            qs, rows, route = np.asarray(_pad16(qs)), np.asarray(_pad16(rows)), "triton"
         aux = jnp.sum(jnp.asarray(rows) ** 2, axis=1)
         keys, gidx = local_scan_keys(
             jnp.asarray(qs), jnp.asarray(rows), aux, n_total,
-            self.K + self.N_PAD, "l2", use_fused, 0,
+            self.K + self.N_PAD, "l2", 0, route=route,
         )
         self._check(keys, gidx, n_total, want)
 
     @pytest.mark.parametrize("use_fused", [False, True])
-    def test_filtered_l2_masks_padding(self, use_fused):
+    def test_filtered_l2_masks_padding(self, use_fused, monkeypatch):
+        # use_fused: the Triton route (interpret mode; features zero-padded
+        # to its 16-wide chunks, which changes no distance).
         import jax.numpy as jnp
         from innr_tpu.parallel._scan import local_scan_keys_filtered
         qs, rows, n_total, want = self._setup()
-        norms2 = jnp.sum(jnp.asarray(rows) ** 2, axis=1)
+        route = "xla"
+        if use_fused:
+            _force_kernel_route(monkeypatch)
+            qs, rows, route = np.asarray(_pad16(qs)), np.asarray(_pad16(rows)), "triton"
+        aux = jnp.sum(jnp.asarray(rows) ** 2, axis=1)
         mask = jnp.ones((8,), jnp.float32)
         keys, gidx = local_scan_keys_filtered(
-            jnp.asarray(qs), jnp.asarray(rows), norms2, mask, n_total,
-            self.K + self.N_PAD, use_fused, 0,
+            jnp.asarray(qs), jnp.asarray(rows), aux, mask, n_total,
+            self.K + self.N_PAD, 0, route=route,
         )
         self._check(keys, gidx, n_total, want)
 
     def test_invert_total_key_is_exact_inverse(self):
-        from innr_tpu.parallel._scan import _invert_total_key
+        _invert_total_key = scan.invert_total_key
         from innr_tpu.utils.order import total_order_key_f32
         vals = np.array(
             [0.0, -0.0, 1.5, -1.5, np.inf, -np.inf, np.nan, -np.nan,
@@ -2704,114 +2793,93 @@ class TestShardedDispatchContracts:
 
     def test_plan_local_k_policy(self, rng, monkeypatch):
         from innr_tpu import config
-        from innr_tpu.parallel.sharded import ShardedCorpus, _plan_local_k
+        from innr_tpu.parallel.sharded import ShardedCorpus, _plan_local_k, _route
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        sc = ShardedCorpus(rng.standard_normal((63, 4)).astype(np.float32))
+        _force_kernel_route(monkeypatch)
+        sc = ShardedCorpus(rng.standard_normal((63, 16)).astype(np.float32))
         assert (sc.n_pad, sc.shard_rows) == (64, 8)
-        # fused: over-fetch by the pad count (63 -> 64 pads 1 row)
-        assert _plan_local_k(sc, 2) == (3, True)
+        # over-fetch by the pad count (63 -> 64 pads 1 row)
+        assert _plan_local_k(sc, 2) == 3
         # clamp at the shard height
-        assert _plan_local_k(sc, 100) == (8, True)
-        # the gate is >=: shard_rows == MIN_ROWS_PALLAS fuses (above);
-        # one notch higher falls back to the plain-k jnp arm
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 9)
-        assert _plan_local_k(sc, 2) == (2, False)
+        assert _plan_local_k(sc, 100) == 8
+        q = jnp.zeros((16,), jnp.float32)
+        assert _route(q, sc, 3) == "triton"
         # force_reference beats an eligible shard
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
         config.force_reference(True)
         try:
-            assert _plan_local_k(sc, 2) == (2, False)
+            assert _route(q, sc, 3) == "xla"
         finally:
             config.force_reference(False)
-        # negative k is gated out BEFORE any planning (k <= 0, not ==0):
-        # the And mutant would feed k=-5 into the scan
-        v, i = sc.knn_l2(np.zeros(4, np.float32), -5)
+        # negative k is gated out BEFORE any planning (k <= 0, not ==0)
+        v, i = sc.knn_l2(np.zeros(16, np.float32), -5)
         assert v.shape == (0,) and i.shape == (0,)
 
     def test_prune_false_never_plans(self, rng, monkeypatch):
-        from innr_tpu import config
         import innr_tpu.parallel.sharded as sh
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+        _force_kernel_route(monkeypatch)
         planned = []
         real = sh._sharded_knn_pruned
         monkeypatch.setattr(
             sh, "_sharded_knn_pruned",
             lambda *a, **kw: planned.append(1) or real(*a, **kw))
-        sc = sh.ShardedCorpus(self._clustered(rng, 2048, 24))
-        q = rng.standard_normal(24).astype(np.float32)
+        sc = sh.ShardedCorpus(self._clustered(rng, 2048, 32))
+        q = rng.standard_normal(32).astype(np.float32)
         sc.knn_dot(q, 4, prune=False)
         assert planned == []          # prune=False: no summaries, no plan
         sc.knn_dot(q, 4, prune=True)
         assert planned == [1]
 
     def test_pruned_plan_wiring(self, rng, monkeypatch):
-        """plan mode (l2 stays l2, cosine plans as dot), tile summary
-        normalization, and the n_q fed to the single-pass eligibility."""
-        from innr_tpu import config, prune as prune_mod
-        import innr_tpu.kernels.knn as kknn
+        """plan mode (l2 stays l2, cosine plans as dot) and tile summary
+        normalization reach the per-shard planner."""
+        from innr_tpu import prune as prune_mod
         import innr_tpu.parallel.sharded as sh
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
-        modes, fasts, norms, nqs = [], [], [], []
+        _force_kernel_route(monkeypatch)
+        modes, norms = [], []
         real_plan = prune_mod.plan_survivors
         monkeypatch.setattr(
             prune_mod, "plan_survivors",
-            lambda qs, c, r, n, k, mode, fast: (
-                modes.append(mode), fasts.append(fast),
-            ) and None or real_plan(qs, c, r, n, k, mode, fast=fast))
+            lambda qs, c, r, n, k, mode, fast=False: modes.append(mode)
+            or real_plan(qs, c, r, n, k, mode, fast=fast))
         real_ts = sh.ShardedCorpus.tile_summary
         monkeypatch.setattr(
             sh.ShardedCorpus, "tile_summary",
             lambda self, normalized=False: norms.append(normalized)
             or real_ts(self, normalized=normalized))
-        real_spk = kknn.single_pass_k
-        monkeypatch.setattr(
-            kknn, "single_pass_k",
-            lambda n_q: nqs.append(n_q) or real_spk(n_q))
 
-        sc = sh.ShardedCorpus(self._clustered(rng, 2048, 40))
-        sc.knn_l2(rng.standard_normal(40).astype(np.float32), 3, prune=True)
-        assert nqs[0] == 1            # 1-D query plans as a single query
+        sc = sh.ShardedCorpus(self._clustered(rng, 2048, 48))
+        sc.knn_l2(rng.standard_normal(48).astype(np.float32), 3, prune=True)
         assert modes == ["l2"] and norms == [False]
 
-        modes.clear(); norms.clear(); nqs.clear()
-        sc2 = sh.ShardedCorpus(self._clustered(rng, 2048, 56))
+        modes.clear(); norms.clear()
+        sc2 = sh.ShardedCorpus(self._clustered(rng, 2048, 64))
         sc2.knn_cosine(
-            rng.standard_normal((3, 56)).astype(np.float32), 3, prune=True)
-        assert nqs[0] == 3            # (Q, D) plans with Q
+            rng.standard_normal((3, 64)).astype(np.float32), 3, prune=True)
         assert modes == ["dot"]       # cosine bounds plan in dot space
         assert norms == [True]        # over NORMALIZED summaries
 
     def test_single_pass_boundary_takes_pruned_path(self, rng, monkeypatch):
-        """k_local == single_pass_k is prune-ELIGIBLE (<=), and
-        k_local == tile_n plans with fast=True (<=)."""
-        from innr_tpu import config, prune as prune_mod
-        import innr_tpu.kernels.knn as kknn
+        """k_local == the kernel's k cap is prune-ELIGIBLE (<=); one past
+        it takes the XLA full scan, with the same exact result."""
         import innr_tpu.parallel.sharded as sh
-        from innr_tpu.kernels.pruned_knn import pruned_tile_n
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+        _force_kernel_route(monkeypatch)
         sc = sh.ShardedCorpus(self._clustered(rng, 4096, 48))
-        tile_n = pruned_tile_n(sc.shard_rows, 48, sc.rows.dtype)
         assert sc.n_pad == sc.n_true  # no pads: k_local == k exactly
-        k = min(tile_n, sc.shard_rows)
-        monkeypatch.setattr(kknn, "single_pass_k", lambda n_q: k)
-
-        planned, fasts = [], []
+        k = triton_knn.K_MAX
+        planned = []
         real = sh._sharded_knn_pruned
         monkeypatch.setattr(
             sh, "_sharded_knn_pruned",
             lambda *a, **kw: planned.append(1) or real(*a, **kw))
-        real_plan = prune_mod.plan_survivors
-        monkeypatch.setattr(
-            prune_mod, "plan_survivors",
-            lambda qs, c, r, n, kk, mode, fast: fasts.append(fast)
-            or real_plan(qs, c, r, n, kk, mode, fast=fast))
-        sc.knn_l2(rng.standard_normal(48).astype(np.float32), k, prune=True)
-        assert planned == [1], "k_local == single_pass_k must stay eligible"
-        assert fasts == [True], "k_local == tile_n must plan fast"
+        q = rng.standard_normal(48).astype(np.float32)
+        v1, i1 = sc.knn_l2(q, k, prune=True)
+        assert planned == [1], "k_local == K_MAX must stay eligible"
+        v2, i2 = sc.knn_l2(q, k + 1, prune=True)
+        assert planned == [1], "k_local > K_MAX must take the full scan"
+        np.testing.assert_array_equal(np.asarray(i2)[:k], np.asarray(i1))
 
     def test_pruned_padding_mask_is_strict(self, rng, monkeypatch):
         """Pad rows are ZEROS; with a tiny query they out-score every
@@ -2820,7 +2888,7 @@ class TestShardedDispatchContracts:
         from innr_tpu import config
         import innr_tpu.parallel.sharded as sh
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+        _force_kernel_route(monkeypatch)
         rows = self._clustered(rng, 3997, 16, offset=20.0)  # pads to 4000
         sc = sh.ShardedCorpus(rows)
         assert sc.n_pad - sc.n_true == 3
@@ -2903,27 +2971,27 @@ class TestHierarchicalDispatchContracts:
         from innr_tpu import config
         import innr_tpu.parallel.hierarchical as hier
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         seen = []
         real = hier._hier_knn
         monkeypatch.setattr(
             hier, "_hier_knn",
-            lambda q, rows, aux, k, k_local, mode, n_total, mesh, use_fused:
-            seen.append((k, k_local, use_fused))
-            or real(q, rows, aux, k, k_local, mode, n_total, mesh,
-                    use_fused))
-        hc = hier.HierarchicalCorpus(self._corpus(rng, 63, 8), n_slices=2)
-        q = rng.standard_normal(8).astype(np.float32)
+            lambda q, rows, aux, k, k_local, mode, n_total, mesh, route,
+            shard_rows: seen.append((k, k_local, route, shard_rows))
+            or real(q, rows, aux, k, k_local, mode, n_total, mesh, route,
+                    shard_rows))
+        hc = hier.HierarchicalCorpus(self._corpus(rng, 63, 16), n_slices=2)
+        q = rng.standard_normal(16).astype(np.float32)
         hc.knn_dot(q, 2)
-        # pad = 64 - 63 = 1; shard_rows = 8 == MIN_ROWS_PALLAS (>= fuses)
-        assert seen == [(2, 3, True)]
+        # pad = 64 - 63 = 1 -> k_local = k + 1; shard_rows = 8
+        assert seen == [(2, 3, "triton", 8)]
         seen.clear()
         config.force_reference(True)
         try:
             hc.knn_dot(q, 2)
         finally:
             config.force_reference(False)
-        assert seen == [(2, 2, False)]    # reference wins; plain k
+        assert seen == [(2, 3, "xla", 8)]    # reference wins the route
 
     def test_fused_l2_uses_real_norms(self, rng, monkeypatch):
         """The l2 aux is sum(r*r); feeding the fused kernel anything else
@@ -2931,7 +2999,7 @@ class TestHierarchicalDispatchContracts:
         from innr_tpu import config
         import innr_tpu.parallel.hierarchical as hier
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
         rows = self._corpus(rng, 128, 16)
         hc = hier.HierarchicalCorpus(rows, n_slices=2)
         q = rng.standard_normal(16).astype(np.float32)
@@ -2951,7 +3019,7 @@ class TestKnnExhaustiveSweep:
     """
 
     def test_masked_l2_values_match_oracle(self, rng):
-        from innr_tpu.kernels import knn as kknn
+        kknn = _kknn
 
         n, d, k = 300, 12, 6
         rows = rng.standard_normal((n, d)).astype(np.float32)
@@ -2969,70 +3037,6 @@ class TestKnnExhaustiveSweep:
             np.asarray(vals),
             np.take_along_axis(d2, want_idx, axis=1),
             rtol=1e-5, atol=1e-5,
-        )
-
-
-class TestPrunedKnnExhaustiveSweep:
-    """Killers for the kernels/pruned_knn.py exhaustive-sweep survivors
-    (round 4): the k-cap dispatch boundary, the _tile_dists tail mask,
-    and the lane-pad constants (the latter replaced by the documented
-    ISA constant ``_LANE`` rather than tested — Mosaic rejects any other
-    value on silicon, and zero-padding is value-inert off it)."""
-
-    def test_k_cap_boundary_stays_on_pruned_path(self, rng, monkeypatch):
-        """k == single_pass_k(n_q) must use the tile-skip scan; only
-        k > cap may fall back to the multi-pass full scan. Pins the
-        ``k > cap`` comparison in _pruned_run in both directions."""
-        import innr_tpu.kernels.knn as kknn
-        import innr_tpu.kernels.pruned_knn as pk
-        from innr_tpu import prune
-
-        n, d = 512, 8
-        rows = rng.standard_normal((n, d)).astype(np.float32)
-        qs = rng.standard_normal((2, d)).astype(np.float32)
-        summary = prune.build_tile_summary(jnp.asarray(rows), 256)
-
-        monkeypatch.setattr(pk, "single_pass_k", lambda n_q: 4)
-
-        def boom(*a, **kw):
-            raise AssertionError("full-scan fallback fired at k <= cap")
-
-        monkeypatch.setattr(kknn, "_fused_knn", boom)
-        # k == cap: pruned path, fallback must not fire — and the result
-        # must still be the exact top-k.
-        vals, idx = pk.fused_knn_dot_pruned_batch(
-            jnp.asarray(qs), jnp.asarray(rows), summary, 4
-        )
-        want = np.argsort(-(qs @ rows.T), axis=1, kind="stable")[:, :4]
-        np.testing.assert_array_equal(np.asarray(idx), want)
-        # k == cap + 1: must route to the fallback.
-        with pytest.raises(AssertionError, match="full-scan fallback"):
-            pk.fused_knn_dot_pruned_batch(
-                jnp.asarray(qs), jnp.asarray(rows), summary, 5
-            )
-
-    def test_tile_dists_masks_exactly_the_out_of_range_lanes(self, rng):
-        """_tile_dists' contract: lanes whose global row index
-        ``tile_id * tile_n + lane`` is >= n_rows are pinned to +inf,
-        in-range lanes carry norms2 - 2 q.r — pinned as a unit so the
-        index arithmetic and the strict < are each observable."""
-        from innr_tpu.kernels.pruned_knn import _tile_dists
-
-        tile_n, d, n_rows, tile_id = 8, 4, 20, 2
-        rows = rng.standard_normal((tile_n, d)).astype(np.float32)
-        q = rng.standard_normal((1, d)).astype(np.float32)
-        norms = (rows ** 2).sum(1)[None, :].astype(np.float32)
-        out = np.asarray(
-            _tile_dists(
-                jnp.asarray(q), jnp.asarray(rows), jnp.asarray(norms),
-                tile_id, tile_n, n_rows,
-            )
-        )
-        # Global indices 16..19 are real rows; 20..23 are out of range.
-        assert np.all(np.isinf(out[0, 4:])) and np.all(out[0, 4:] > 0)
-        np.testing.assert_allclose(
-            out[0, :4], (norms[0] - 2.0 * (rows @ q[0]))[:4],
-            rtol=1e-6, atol=1e-6,
         )
 
 
@@ -3150,11 +3154,9 @@ class TestScalarExhaustiveSweep:
         assert np.isfinite(clipped.alpha)   # percentile path filters it
 
     def test_k0_and_gate_boundaries_never_touch_the_kernel(self, monkeypatch):
-        """k == 0 returns empty WITHOUT dispatching; n == MIN_ROWS_PALLAS
-        (boundary-inclusive) MUST dispatch to the fused kernel unless
-        force_reference wins — pinned with a sentinel kernel, the same
-        spy-table discipline as TestFusedGateContracts."""
-        import innr_tpu.kernels.knn as kknn
+        """k == 0 returns empty WITHOUT dispatching; where the route takes
+        the kernel it MUST dispatch to it unless force_reference wins —
+        pinned with a sentinel kernel."""
         from innr_tpu import config
         from innr_tpu.ops.scalar import (
             QuantizationParams, QuantizedU8Batch, batch_knn_u8,
@@ -3167,22 +3169,22 @@ class TestScalarExhaustiveSweep:
         q1 = rng.standard_normal(16).astype(np.float32)
         qs = rng.standard_normal((2, 16)).astype(np.float32)
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        _force_kernel_route(monkeypatch)
 
         def boom(*a, **kw):
-            raise AssertionError("fused u8 kernel dispatched")
+            raise AssertionError("u8 kernel dispatched")
 
-        monkeypatch.setattr(kknn, "fused_knn_u8_batch", boom)
-        # k == 0: empty result, sentinel must NOT fire (n >= gate).
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
+        # k == 0: empty result, sentinel must NOT fire.
         assert batch_knn_u8(q1, codes, params, 0) == []
         v, i = batch_knn_u8_multi(qs, codes, params, 0)
         assert v.shape == (2, 0) and i.shape == (2, 0)
-        # n == MIN_ROWS_PALLAS exactly: the fused path MUST fire.
-        with pytest.raises(AssertionError, match="fused u8 kernel"):
+        # the route takes the kernel: it MUST fire.
+        with pytest.raises(AssertionError, match="u8 kernel"):
             batch_knn_u8(q1, codes, params, 3)
-        with pytest.raises(AssertionError, match="fused u8 kernel"):
+        with pytest.raises(AssertionError, match="u8 kernel"):
             batch_knn_u8_multi(qs, codes, params, 3)
-        # force_reference wins over the gate: sentinel must NOT fire.
+        # force_reference wins over the route: sentinel must NOT fire.
         config.force_reference(True)
         try:
             out = batch_knn_u8(q1, codes, params, 3)
@@ -3236,33 +3238,26 @@ class TestSlotExhaustiveSweep:
         ) == SlotCounts(1, 1, 1)
 
     def test_sketch_knn_k0_and_cap_gate(self, monkeypatch):
-        """k == 0 returns empty WITHOUT dispatching; k == single_pass_k
-        (boundary-inclusive) must dispatch the fused slot kernel; k ==
-        cap + 1 must take the XLA fallback — sentinel-kernel spy."""
-        import innr_tpu.kernels.knn as kknn
-        import innr_tpu.kernels.slot_knn as kslot
-        from innr_tpu import config
+        """k == 0 returns empty without scoring; any k > 0 scores on the
+        XLA compare-reduce (the slot family has no kernel, so no k cap)."""
         from innr_tpu.ops.slot import SketchCorpus, slot_knn_u32
 
         rng = np.random.default_rng(9)
         raw = rng.integers(0, 50, (8, 16)).astype(np.uint32)
-        sketches = SketchCorpus(raw)   # fused path needs the transpose
+        sketches = SketchCorpus(raw)
         q = raw[3].copy()
-
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        monkeypatch.setattr(kknn, "single_pass_k", lambda n_q: 4)
+        _force_kernel_route(monkeypatch)
 
         def boom(*a, **kw):
-            raise AssertionError("fused slot kernel dispatched")
+            raise AssertionError("a kernel dispatched")
 
-        monkeypatch.setattr(kslot, "fused_slot_knn", boom)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         counts, idx = slot_knn_u32(q, sketches, 0)
         assert counts.shape == (0,) and idx.shape == (0,)
-        with pytest.raises(AssertionError, match="fused slot kernel"):
-            slot_knn_u32(q, sketches, 4)
-        # k over the cap: XLA fallback, correct results, sentinel silent.
-        counts, idx = slot_knn_u32(q, sketches, 5)
-        assert int(np.asarray(idx)[0]) == 3 and int(np.asarray(counts)[0]) == 0
+        for k in (4, 5, 8):
+            counts, idx = slot_knn_u32(q, sketches, k)
+            assert int(np.asarray(idx)[0]) == 3 and int(np.asarray(counts)[0]) == 0
+            assert len(np.asarray(idx)) == k
 
 
 class TestSparseExhaustiveSweep:
@@ -3541,20 +3536,18 @@ class TestGridPolicyContracts:
         assert vals.shape == (2, 0) and idx.shape == (2, 0)
 
     def test_local_k_policy_recorded(self, monkeypatch):
-        # grid.py:213 [binop Sub], :216 [boolop And], :217 [cmp GtE],
-        # :219 [binop Add], :277->220 call path: pin the exact
-        # (k_local, use_fused) handed to the launcher for a geometry where
-        # the min() does NOT bind (pad matters) and one where it DOES
-        # (shard_rows matters), at the fused gate boundary, plus the
+        # grid.py: pin the exact (k_local, route, shard_rows) handed to the
+        # launcher for a geometry where the min() does NOT bind (pad
+        # matters) and one where it DOES (shard_rows matters), plus the
         # force_reference arm.
         from innr_tpu import config
         from innr_tpu.parallel import grid as gmod
 
         rec = {}
 
-        def recorder(qs, rows, aux, k, k_local, mode, n_total, mesh, use_fused):
-            rec["k_local"] = k_local
-            rec["use_fused"] = use_fused
+        def recorder(qs, rows, aux, k, k_local, mode, n_total, mesh, route,
+                     shard_rows):
+            rec.update(k_local=k_local, route=route, shard_rows=shard_rows)
             n_q = qs.shape[0]
             kk = max(k, 1)
             return jnp.zeros((n_q, kk), jnp.float32), jnp.zeros(
@@ -3562,42 +3555,37 @@ class TestGridPolicyContracts:
             )
 
         monkeypatch.setattr(gmod, "_grid_knn", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 5)
+        _force_kernel_route(monkeypatch)
         mesh = self._mesh()
-        # n_true=9 on 2 shards -> n_pad=10, pad=1, shard_rows=5 == MIN (the
-        # GtE boundary must fuse).
-        g = gmod.GridIndex(np.ones((9, 4), np.float32), mesh)
-        q = np.ones((2, 4), np.float32)
+        # n_true=9 on 2 shards -> n_pad=10, pad=1, shard_rows=5.
+        g = gmod.GridIndex(np.ones((9, 16), np.float32), mesh)
+        q = np.ones((2, 16), np.float32)
         g.knn_dot(q, 2)
-        assert rec["use_fused"] is True
-        assert rec["k_local"] == 3  # min(k + pad, shard_rows) = min(3, 5)
+        assert rec == {"k_local": 3, "route": "triton", "shard_rows": 5}
         g.knn_dot(q, 7)
         assert rec["k_local"] == 5  # binding: min(8, 5)
         monkeypatch.setattr(config, "reference_forced", lambda: True)
         g.knn_dot(q, 2)
-        assert rec["use_fused"] is False
-        assert rec["k_local"] == 2  # unfused: min(k, shard_rows)
+        assert rec == {"k_local": 3, "route": "xla", "shard_rows": 5}
 
     def test_filtered_policy_and_validation(self, monkeypatch):
-        # grid.py:246 [boolop Or], :258 [cmp LtE / boolop Or],
-        # :276 [binop Sub], :279 [boolop And], :280 [cmp GtE],
-        # :282 [binop Add]: the filtered twin of the two tests above.
+        # grid.py filtered twin of the test above.
         from innr_tpu import config
         from innr_tpu.parallel import grid as gmod
         from innr_tpu.utils.asserts import ContractError
 
         mesh = self._mesh()
-        g = gmod.GridIndex(np.ones((9, 4), np.float32), mesh)
-        q = np.ones((2, 4), np.float32)
+        g = gmod.GridIndex(np.ones((9, 16), np.float32), mesh)
+        q = np.ones((2, 16), np.float32)
         ok = np.ones(9, bool)
         with pytest.raises(ContractError, match="grid_knn_filtered"):
             g.knn_filtered(np.ones((2, 5), np.float32), 2, ok)
 
         rec = {}
 
-        def recorder(qs, rows, aux, mask, k, k_local, n_total, mesh_, use_fused):
-            rec["k_local"] = k_local
-            rec["use_fused"] = use_fused
+        def recorder(qs, rows, aux, mask, k, k_local, n_total, mesh_, route,
+                     shard_rows):
+            rec.update(k_local=k_local, route=route)
             n_q = qs.shape[0]
             kk = max(k, 1)
             return jnp.zeros((n_q, kk), jnp.float32), jnp.zeros(
@@ -3612,19 +3600,19 @@ class TestGridPolicyContracts:
         assert vals.shape == (2, 0)
         vals, idx = g.knn_filtered(q, 3, np.zeros(9, bool))  # none passing
         assert vals.shape == (2, 0)
-        empty = gmod.GridIndex(np.zeros((0, 4), np.float32), mesh)
+        empty = gmod.GridIndex(np.zeros((0, 16), np.float32), mesh)
         vals, idx = empty.knn_filtered(q, 3, np.zeros(0, bool))
         assert vals.shape == (2, 0)
 
         monkeypatch.setattr(gmod, "_grid_knn_filtered", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 5)
+        _force_kernel_route(monkeypatch)
         g.knn_filtered(q, 2, ok)
-        assert rec["use_fused"] is True and rec["k_local"] == 3
+        assert rec == {"k_local": 3, "route": "triton"}
         g.knn_filtered(q, 7, ok)
         assert rec["k_local"] == 5
         monkeypatch.setattr(config, "reference_forced", lambda: True)
         g.knn_filtered(q, 2, ok)
-        assert rec["use_fused"] is False and rec["k_local"] == 2
+        assert rec == {"k_local": 3, "route": "xla"}
 
 
 class TestQueryParallelPolicyContracts:
@@ -3657,8 +3645,7 @@ class TestQueryParallelPolicyContracts:
         assert vals.shape == (2, 0) and ids.shape == (2, 0)
 
     def test_use_fused_policy_and_aux_routing(self, monkeypatch):
-        # query_parallel.py:170 [boolop And], :171 [cmp GtE],
-        # :176 [cmp Eq]: the fused gate at the n == MIN boundary, the
+        # query_parallel.py: the route handed to the launcher, the
         # force_reference arm, and the mode-conditional aux routing (dot
         # gets the 1-element dummy, l2 the (N,) norms).
         from innr_tpu import config
@@ -3666,35 +3653,33 @@ class TestQueryParallelPolicyContracts:
 
         rec = {}
 
-        def recorder(qs, rows, norms2, inv, k, mode, mesh, use_fused):
+        def recorder(qs, rows, norms2, inv, k, mode, mesh, route):
             rec["norms2_shape"] = tuple(norms2.shape)
-            rec["use_fused"] = use_fused
+            rec["route"] = route
             n_q = qs.shape[0]
             return (jnp.zeros((n_q, k), jnp.float32),
                     jnp.zeros((n_q, k), jnp.int32))
 
         monkeypatch.setattr(qp, "_qp_knn", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 4)
-        idx = qp.QueryParallelIndex(np.ones((4, 4), np.float32))  # n == MIN
-        q = np.ones((2, 4), np.float32)
+        _force_kernel_route(monkeypatch)
+        idx = qp.QueryParallelIndex(np.ones((4, 16), np.float32))
+        q = np.ones((2, 16), np.float32)
         idx.knn_dot(q, 2)
-        assert rec["use_fused"] is True
+        assert rec["route"] == "triton"
         assert rec["norms2_shape"] == (1,)  # dot rides the dummy
         idx.knn_l2(q, 2)
         assert rec["norms2_shape"] == (4,)  # l2 gets real norms
         monkeypatch.setattr(config, "reference_forced", lambda: True)
         idx.knn_dot(q, 2)
-        assert rec["use_fused"] is False
+        assert rec["route"] == "xla"
 
     def test_filtered_validation_and_policy(self, monkeypatch):
-        # query_parallel.py:203 [boolop Or], :215 [cmp LtE / boolop Or],
-        # :233 [boolop And], :234 [cmp GtE].
         from innr_tpu import config
         from innr_tpu.parallel import query_parallel as qp
         from innr_tpu.utils.asserts import ContractError
 
-        idx = qp.QueryParallelIndex(np.ones((4, 4), np.float32))
-        q = np.ones((2, 4), np.float32)
+        idx = qp.QueryParallelIndex(np.ones((4, 16), np.float32))
+        q = np.ones((2, 16), np.float32)
         ok = np.ones(4, bool)
         with pytest.raises(ContractError, match="query_parallel_knn_filtered"):
             idx.knn_filtered(np.ones((2, 5), np.float32), 2, ok)
@@ -3707,25 +3692,25 @@ class TestQueryParallelPolicyContracts:
         assert vals.shape == (2, 0)
         vals, ids = idx.knn_filtered(q, 3, np.zeros(4, bool))
         assert vals.shape == (2, 0)
-        empty = qp.QueryParallelIndex(np.zeros((0, 4), np.float32))
+        empty = qp.QueryParallelIndex(np.zeros((0, 16), np.float32))
         vals, ids = empty.knn_filtered(q, 3, np.zeros(0, bool))
         assert vals.shape == (2, 0)
 
         rec = {}
 
-        def recorder(qs, rows, norms2, mask, k, mesh, use_fused):
-            rec["use_fused"] = use_fused
+        def recorder(qs, rows, norms2, mask, k, mesh, route):
+            rec["route"] = route
             n_q = qs.shape[0]
             return (jnp.zeros((n_q, k), jnp.float32),
                     jnp.zeros((n_q, k), jnp.int32))
 
         monkeypatch.setattr(qp, "_qp_knn_filtered", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 4)
+        _force_kernel_route(monkeypatch)
         idx.knn_filtered(q, 2, ok)
-        assert rec["use_fused"] is True  # n == MIN boundary fuses
+        assert rec["route"] == "triton"
         monkeypatch.setattr(config, "reference_forced", lambda: True)
         idx.knn_filtered(q, 2, ok)
-        assert rec["use_fused"] is False
+        assert rec["route"] == "xla"
 
 
 class TestStreamedArrayContracts:
@@ -3835,27 +3820,15 @@ class TestShardedPackedContracts:
         return pos, neg
 
     def test_plan_packed_policy_table(self, monkeypatch):
-        # sharded_packed.py:39 [binop Sub], :42 [boolop And],
-        # :43 [cmp GtE], :44 [binop Add], :44 [cmp LtE], :46 [binop Add]:
-        # exact (k_local, use_fused) pins across the policy space.
-        from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        # sharded_packed.py _plan_packed: padding is masked BEFORE the
+        # local top-k, so k_local = min(k, shard_cols) with no over-fetch.
         from innr_tpu.parallel.sharded_packed import _plan_packed
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        monkeypatch.setattr(kknn, "single_pass_k", lambda n_q: 16)
-        # A: pad matters, min() not binding: pad=3, shard_cols=10.
-        assert _plan_packed(40, 37, 4, 5) == (8, True)
-        # C: fused gate boundary-inclusive at shard_cols == MIN.
-        assert _plan_packed(32, 32, 4, 4) == (4, True)
-        # D: k-cap boundary-inclusive at k + pad == single_pass_k.
-        assert _plan_packed(40, 37, 4, 13) == (10, True)
-        # E: one past the cap falls back (k_local = min(k, shard_cols)).
-        assert _plan_packed(40, 37, 4, 15) == (10, False)
-        assert _plan_packed(40, 37, 4, 14) == (10, False)
-        # force_reference wins over everything.
-        monkeypatch.setattr(config, "reference_forced", lambda: True)
-        assert _plan_packed(40, 37, 4, 5) == (5, False)
+        assert _plan_packed(40, 4, 5) == 5      # shard_cols 10, not binding
+        assert _plan_packed(40, 4, 10) == 10    # boundary
+        assert _plan_packed(40, 4, 15) == 10    # binding clamp
+        assert _plan_packed(32, 4, 4) == 4
+        assert _plan_packed(8, 8, 3) == 1       # one row per shard
 
     def _run_binary(self, monkeypatch, fused: bool):
         from innr_tpu import config
@@ -3865,7 +3838,7 @@ class TestShardedPackedContracts:
         words = self._binary_words()
         sb = ShardedPackedBinary(words, self.DIM)
         if fused:
-            monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+            _force_kernel_route(monkeypatch)
         # Zero query: row 450 (one bit) is the unique winner; the three
         # zero padding rows would all beat it if the gidx < n_total mask
         # slipped to <= (counts 0 vs 1).
@@ -3900,7 +3873,7 @@ class TestShardedPackedContracts:
         pos, neg = self._planes()
         st = ShardedPackedTernary(pos, neg, self.DIM)
         if fused:
-            monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+            _force_kernel_route(monkeypatch)
         # +1@dim0 query: every real row scores -1, zero-plane padding rows
         # score 0 — the mask is the only thing keeping them out.
         qp = np.zeros(2, np.uint32); qp[0] = 1
@@ -4071,7 +4044,7 @@ class TestShardedPipelineContracts:
         lidx = _coarse_local_candidates(
             (jnp.asarray(qp), jnp.asarray(qn)),
             (jnp.asarray(pos.T), jnp.asarray(neg.T)),
-            "ternary", 10, use_fused=False,
+            "ternary", 10, route="xla",
         )
         got = dots[np.asarray(lidx)[0]]
         want = np.sort(dots)[::-1][:10]
@@ -4093,20 +4066,18 @@ class TestShardedPipelineContracts:
         assert int(ids[0]) < 21
 
     def test_policy_recorded_and_shortcuts(self, monkeypatch):
-        # sharded_pipeline.py:256 [boolop Or], :265 [binop Mult],
-        # :273 [boolop And], :274 [cmp GtE], :275 [cmp LtE]: the
-        # n_cand/k_local/use_fused policy handed to the launcher, at both
-        # gate boundaries and under force_reference, plus the degenerate
-        # shortcuts (never launch).
+        # sharded_pipeline.py: the n_cand/k_local/route policy handed to
+        # the launcher (binary coarse scans are XLA-only; u8 and
+        # matryoshka follow the dense route), under force_reference, plus
+        # the degenerate shortcuts (never launch).
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
         from innr_tpu.parallel import sharded_pipeline as spl
 
         rec = {}
 
         def recorder(qs, rows, coarse, qs_enc, n_total, n_cand, k, k_local,
-                     kind, mesh, n_coarse, use_fused):
-            rec.update(n_cand=n_cand, k_local=k_local, use_fused=use_fused)
+                     kind, mesh, n_coarse, route):
+            rec.update(n_cand=n_cand, k_local=k_local, route=route)
             n_q = qs.shape[0]
             return (jnp.zeros((n_q, k), jnp.float32),
                     jnp.zeros((n_q, k), jnp.int32))
@@ -4114,25 +4085,27 @@ class TestShardedPipelineContracts:
         def boom(*a, **kw):
             raise AssertionError("two-stage launcher dispatched")
 
-        rows = np.ones((64, 8), np.float32)  # 8 shards x 8 rows == MIN
-        q = np.ones((2, 8), np.float32)
+        rows = np.ones((64, 16), np.float32)  # 8 shards x 8 rows
+        q = np.ones((2, 16), np.float32)
         monkeypatch.setattr(spl, "_sharded_two_stage", boom)
         idx = spl.ShardedTwoStageIndex(rows, "binary", rerank_factor=3)
         assert idx.search_batch(q, 0)[0].shape == (2, 0)
-        empty = spl.ShardedTwoStageIndex(np.zeros((0, 8), np.float32), "binary")
+        empty = spl.ShardedTwoStageIndex(np.zeros((0, 16), np.float32), "binary")
         assert empty.search_batch(q, 5)[0].shape == (2, 0)
-        assert idx.search_batch(np.ones((0, 8), np.float32), 5)[0].shape == (0, 0)
+        assert idx.search_batch(np.ones((0, 16), np.float32), 5)[0].shape == (0, 0)
 
         monkeypatch.setattr(spl, "_sharded_two_stage", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)   # shard_rows == 8
-        monkeypatch.setattr(kknn, "single_pass_k", lambda n_q: 6)
-        idx.search_batch(q, 2)  # n_cand = min(max(2*3, 2), 8) = 6 == cap
-        assert rec == {"n_cand": 6, "k_local": 2, "use_fused": True}
-        idx.search_batch(q, 3)  # n_cand = min(9, 8) = 8 > cap -> fallback
-        assert rec["n_cand"] == 8 and rec["use_fused"] is False
+        _force_kernel_route(monkeypatch)
+        idx.search_batch(q, 2)  # n_cand = min(max(2*3, 2), 8) = 6
+        assert rec == {"n_cand": 6, "k_local": 2, "route": "xla"}
+        idx.search_batch(q, 3)  # n_cand = min(9, 8) = 8
+        assert rec["n_cand"] == 8
+        u8 = spl.ShardedTwoStageIndex(rows, "u8", rerank_factor=3)
+        u8.search_batch(q, 2)
+        assert rec == {"n_cand": 6, "k_local": 2, "route": "triton"}
         monkeypatch.setattr(config, "reference_forced", lambda: True)
-        idx.search_batch(q, 2)
-        assert rec["use_fused"] is False
+        u8.search_batch(q, 2)
+        assert rec["route"] == "xla"
 
     def test_validation_arms(self):
         # sharded_pipeline.py:170 [cmp Lt -> LtE] (rerank_factor == 1 is
@@ -4427,17 +4400,15 @@ class TestShardedMaxSimContracts:
         assert empty.knn(q3, 5)[0].shape == (3, 0)
 
     def test_policy_recorded(self, monkeypatch):
-        # sharded_maxsim.py:142 [binop FloorDiv], :145 [boolop And],
-        # :146 [cmp GtE / binop FloorDiv / const 16 / const 64]: the
-        # (k_local, use_fused) pair handed to the launcher, pinned at both
-        # gate constants' boundaries, the k clamp, and force_reference.
+        # sharded_maxsim.py: the k_local handed to the launcher (the shard
+        # clamp); MaxSim has a single route, whatever the corpus size.
         from innr_tpu import config
         from innr_tpu.parallel import sharded_maxsim as sms
 
         rec = {}
 
-        def recorder(q, docs, mask, k, k_local, n_total, mesh, use_fused):
-            rec.update(k_local=k_local, use_fused=use_fused)
+        def recorder(q, docs, mask, k, k_local, n_total, mesh):
+            rec.update(k_local=k_local)
             return (jnp.zeros((k,), jnp.float32), jnp.zeros((k,), jnp.int32))
 
         monkeypatch.setattr(sms, "_sharded_maxsim_knn", recorder)
@@ -4446,20 +4417,13 @@ class TestShardedMaxSimContracts:
         def mk(n):
             return sms.ShardedMaxSimCorpus(np.ones((n, 1, 4), np.float32))
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 1600)  # gate = 100
-        mk(800).knn(q, 3)   # shard_rows == 100 == gate: fused (GtE)
-        assert rec == {"k_local": 3, "use_fused": True}
-        mk(768).knn(q, 3)   # shard_rows 96: below gate 100, above the
-        assert rec["use_fused"] is False  # const-16 mutant's gate of 94
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 512)   # gate = 64
-        mk(512).knn(q, 3)   # shard_rows == 64 == the const-64 floor
-        assert rec["use_fused"] is True
-        mk(16).knn(q, 5)    # shard_rows 2: k clamps, gate fails
-        assert rec == {"k_local": 2, "use_fused": False}
-        monkeypatch.setattr(config, "reference_forced", lambda: True)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 1600)
         mk(800).knn(q, 3)
-        assert rec["use_fused"] is False
+        assert rec == {"k_local": 3}
+        mk(16).knn(q, 5)    # shard_rows 2: k clamps
+        assert rec == {"k_local": 2}
+        monkeypatch.setattr(config, "reference_forced", lambda: True)
+        mk(800).knn(q, 3)
+        assert rec == {"k_local": 3}
 
 
 class TestShardedQuantContracts:
@@ -4492,7 +4456,7 @@ class TestShardedQuantContracts:
         codes, params = self._corpus()
         sq = ShardedQuantizedU8(codes, params)
         if fused:
-            monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+            _force_kernel_route(monkeypatch)
         q = -np.ones(16, np.float32)
         vals, idx = sq.knn(q, 3)
         assert np.asarray(idx).tolist() == [700, 701, 702]
@@ -4527,8 +4491,8 @@ class TestShardedQuantContracts:
         assert empty.knn(np.ones((2, 8), np.float32), 3)[0].shape == (2, 0)
 
     def test_policy_recorded(self, monkeypatch):
-        # sharded_quant.py:164 [binop Sub], :165 [binop FloorDiv],
-        # :169 [boolop And], :170 [cmp GtE], :172 [binop Add].
+        # sharded_quant.py: k_local = min(k + pad, shard_rows) and the
+        # route handed to the launcher.
         from innr_tpu import config
         from innr_tpu.ops.scalar import QuantizationParams
         from innr_tpu.parallel import sharded_quant as sqm
@@ -4536,23 +4500,23 @@ class TestShardedQuantContracts:
         rec = {}
 
         def recorder(q, codes, alpha, offset, k, k_local, n_total, mesh,
-                     use_fused):
-            rec.update(k_local=k_local, use_fused=use_fused)
+                     route):
+            rec.update(k_local=k_local, route=route)
             return (jnp.zeros((k,), jnp.float32), jnp.zeros((k,), jnp.int32))
 
         monkeypatch.setattr(sqm, "_sharded_u8_knn", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 9)
+        _force_kernel_route(monkeypatch)
         params = QuantizationParams(alpha=1.0, offset=0.0)
-        # 69 rows on 8 devices -> n_pad 72, shard_rows 9 == MIN, pad 3.
-        sq = sqm.ShardedQuantizedU8(np.ones((69, 8), np.uint8), params)
-        q = np.ones(8, np.float32)
+        # 69 rows on 8 devices -> n_pad 72, shard_rows 9, pad 3.
+        sq = sqm.ShardedQuantizedU8(np.ones((69, 16), np.uint8), params)
+        q = np.ones(16, np.float32)
         sq.knn(q, 2)   # non-binding: k_local = min(2 + 3, 9) = 5
-        assert rec == {"k_local": 5, "use_fused": True}
+        assert rec == {"k_local": 5, "route": "triton"}
         sq.knn(q, 8)   # binding: min(11, 9) = 9
         assert rec["k_local"] == 9
         monkeypatch.setattr(config, "reference_forced", lambda: True)
-        sq.knn(q, 2)   # unfused: min(k, shard_rows) = 2
-        assert rec == {"k_local": 2, "use_fused": False}
+        sq.knn(q, 2)
+        assert rec == {"k_local": 5, "route": "xla"}
 
 
 class TestShardedSlotContracts:
@@ -4580,7 +4544,7 @@ class TestShardedSlotContracts:
 
         sc = ShardedSlotCorpus(self._sketches())
         if fused:
-            monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+            _force_kernel_route(monkeypatch)
         counts, idx = sc.knn(np.zeros(8, np.uint32), 1)
         assert int(idx[0]) == 450 and int(counts[0]) == 1
         counts, idx = sc.knn_batch(np.zeros((2, 8), np.uint32), 1)
@@ -4611,32 +4575,27 @@ class TestShardedSlotContracts:
         assert empty.knn_batch(np.ones((2, 8), np.uint32), 3)[0].shape == (2, 0)
 
     def test_nq_reaches_the_plan(self, monkeypatch):
-        # sharded_slot.py:185 [cmp Eq / const 2]: the planner must see the
-        # TRUE query count — 1 for a single sketch, Q for a (Q, S) batch.
-        # With a single_pass_k that depends on n_q, the fuse decision
-        # flips if the wrong count is plumbed.
-        from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        # sharded_slot.py: single sketches and (Q, S) batches get the same
+        # plan — k clamped to the shard width, no over-fetch (padding is
+        # masked before the local top-k).
         from innr_tpu.parallel import sharded_slot as ssl
 
         rec = {}
 
-        def recorder(q, slots, k, k_local, n_total, mesh, use_fused):
-            rec["use_fused"] = use_fused
+        def recorder(q, slots, k, k_local, n_total, mesh):
+            rec["k_local"] = k_local
             shape = (k,) if q.ndim == 1 else (q.shape[0], k)
             return (jnp.zeros(shape, jnp.uint32), jnp.zeros(shape, jnp.int32))
 
         monkeypatch.setattr(ssl, "_sharded_slot_knn", recorder)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        monkeypatch.setattr(
-            kknn, "single_pass_k", lambda n_q: 16 if n_q == 1 else 4
-        )
-        # 69 sketches -> n_pad 72, shard 9, pad 3; k=2 -> k + pad = 5.
+        # 69 sketches -> n_pad 72, shard 9, pad 3.
         sc = ssl.ShardedSlotCorpus(np.ones((69, 8), np.uint32))
-        sc.knn(np.ones(8, np.uint32), 2)        # n_q=1: cap 16 -> fused
-        assert rec["use_fused"] is True
-        sc.knn_batch(np.ones((3, 8), np.uint32), 2)  # n_q=3: cap 4 -> not
-        assert rec["use_fused"] is False
+        sc.knn(np.ones(8, np.uint32), 2)
+        assert rec["k_local"] == 2
+        sc.knn_batch(np.ones((3, 8), np.uint32), 2)
+        assert rec["k_local"] == 2
+        sc.knn(np.ones(8, np.uint32), 20)
+        assert rec["k_local"] == 9
 
     def test_minhash_similarity_formula(self):
         # sharded_slot.py:217 [binop Div / binop Sub]: sims must be
@@ -4792,7 +4751,7 @@ class TestTernaryWordsKernelOracle:
     directly against the integer dot oracle."""
 
     def test_ternary_words_kernel_matches_dot_oracle(self):
-        from innr_tpu.kernels.hamming import batch_ternary_dot_words
+        batch_ternary_dot_words = _kham.batch_ternary_dot_words
         from innr_tpu.ops.ternary import (
             encode_ternary_batch, encode_ternary_values,
         )
@@ -4810,68 +4769,6 @@ class TestTernaryWordsKernelOracle:
         np.testing.assert_array_equal(out, (vals * q[None, :]).sum(axis=1))
 
 
-class TestPruneRouterDecision:
-    """Kills the config.py _PRUNE_ROUTE_MIN_ELIDE const survivor (0.10 ->
-    -0.1 collapses min_elide to max(1, negative) = 1) and the
-    routed_raw threshold arithmetic. Both routes return bit-identical
-    results by construction, so value tests are blind to the DECISION —
-    spy it by monkeypatching the branch bodies to return distinct
-    markers (lax.cond traces both, but only the taken branch's marker
-    comes out)."""
-
-    @staticmethod
-    def _route_taken(n_tiles, n_surv, monkeypatch):
-        import jax.numpy as jnp
-
-        from innr_tpu.kernels import knn as kknn
-        from innr_tpu.kernels import pruned_knn as kpruned
-
-        def _mark(v):
-            def _fn(qs, rows, aux, order, n_surv, k, mode, tile_n):
-                return (jnp.full((1, 8), v, jnp.int32),
-                        jnp.full((1, 8), v, jnp.int32))
-            return _fn
-
-        monkeypatch.setattr(kpruned, "_pruned_raw", _mark(1))
-        monkeypatch.setattr(
-            kknn, "_fused_knn_raw",
-            lambda qs, rows, aux, k, mode, rv: (
-                jnp.full((1, 8), 2, jnp.int32),
-                jnp.full((1, 8), 2, jnp.int32),
-            ),
-        )
-        qs = jnp.zeros((1, 8), jnp.float32)
-        rows = jnp.zeros((n_tiles * 8, 8), jnp.float32)
-        order = jnp.arange(n_tiles, dtype=jnp.int32)
-        keys, _ = kpruned.routed_raw(
-            qs, rows, None, order, jnp.int32(n_surv), 8, "dot", 8,
-            dynamic=False,
-        )
-        return int(np.asarray(keys)[0, 0])  # 1=pruned, 2=full
-
-    def test_threshold_scales_with_tile_count(self, monkeypatch):
-        # 40 tiles, default 0.10 -> min_elide=4: a plan eliding only 2
-        # tiles must route FULL. The -0.1 const mutant (min_elide=1) and
-        # any Mult/round mutation flips this to pruned.
-        assert self._route_taken(40, 38, monkeypatch) == 2
-        # eliding exactly 4 routes pruned (boundary inclusive)
-        assert self._route_taken(40, 36, monkeypatch) == 1
-
-    def test_min_elide_floor_is_one(self, monkeypatch):
-        # 4 tiles: round(0.1*4)=0 floors to 1 — eliding a single tile
-        # engages pruning; eliding nothing routes full.
-        assert self._route_taken(4, 3, monkeypatch) == 1
-        assert self._route_taken(4, 4, monkeypatch) == 2
-
-    def test_setter_reaches_the_decision(self, monkeypatch):
-        from innr_tpu import config
-
-        monkeypatch.setattr(config, "_PRUNE_ROUTE_MIN_ELIDE", 0.5)
-        # threshold 0.5 at 40 tiles -> min_elide=20: eliding 10 is full
-        assert self._route_taken(40, 30, monkeypatch) == 2
-        assert self._route_taken(40, 20, monkeypatch) == 1
-
-
 class TestHammingWordsKernelOracle:
     """Kills the hamming.py:33 BitXor survivor: `rows ^ q` inside
     _hamming_kernel. The mapped suites only reach the kernel above the
@@ -4880,7 +4777,7 @@ class TestHammingWordsKernelOracle:
     against the popcount oracle."""
 
     def test_hamming_words_kernel_matches_popcount_oracle(self):
-        from innr_tpu.kernels.hamming import batch_hamming_words
+        batch_hamming_words = _kham.batch_hamming_words
 
         rng = np.random.default_rng(7)
         corpus = rng.integers(0, 2**32, size=(137, 5), dtype=np.uint32)
@@ -4905,7 +4802,7 @@ class TestHammingWordsKernelOracle:
         # n=16384, w=2 the tile is 8192 -> a 2-step grid; the Mult
         # mutant explodes it to 134M idempotent steps (timeout = killed
         # in the sweep). Values also pin the multi-tile index map.
-        from innr_tpu.kernels.hamming import batch_hamming_words
+        batch_hamming_words = _kham.batch_hamming_words
 
         rng = np.random.default_rng(11)
         corpus = rng.integers(0, 2**32, size=(16_384, 2), dtype=np.uint32)
@@ -4920,7 +4817,7 @@ class TestHammingWordsKernelOracle:
 
     def test_ternary_words_multi_tile_grid(self):
         # Same for the ternary kernel's grid at hamming.py:85.
-        from innr_tpu.kernels.hamming import batch_ternary_dot_words
+        batch_ternary_dot_words = _kham.batch_ternary_dot_words
         from innr_tpu.ops.ternary import (
             encode_ternary_batch, encode_ternary_values,
         )

@@ -15,7 +15,7 @@ class TestDenormals:
         a = np.full(16, sub, np.float32)
         b = np.full(16, 2.0, np.float32)
         got = float(it.dot(a, b))
-        # TPU/XLA may flush subnormals to zero; both 0 and the exact value
+        # The device/XLA may flush subnormals to zero; both 0 and the exact value
         # satisfy the contract (result within one subnormal magnitude).
         assert abs(got) <= 16 * 1e-40 * 2.0 * 1.01 + 1e-38
 

@@ -1,15 +1,19 @@
-"""Fused packed kNN kernels (binary Hamming, ternary, u8 asymmetric) vs
+"""Packed kNN scans (binary Hamming, ternary, u8 asymmetric) vs
 brute-force oracles."""
 
 import numpy as np
 import pytest
 
 import innr_tpu as it
-from innr_tpu import config
-from innr_tpu.kernels import knn as kknn
-from innr_tpu.kernels import packed_knn as kpacked
+from innr_tpu import config, scan
+from innr_tpu.ops.binary import binary_knn_batch
+from innr_tpu.ops.ternary import ternary_knn_batch
 
 import jax.numpy as jnp
+
+# A corpus taller than the XLA route's direct-L2 threshold (the old
+# kernel-dispatch size, kept so the "large" cases stay large).
+LARGE = scan.DIRECT_L2_MAX_ROWS
 
 
 class TestBinaryKnn:
@@ -18,7 +22,7 @@ class TestBinaryKnn:
         rows = rng.standard_normal((n, d)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows, 0.0)
         q = it.encode_binary(rows[7] + 0.1, 0.0)
-        counts, idx = kpacked.fused_binary_knn(q.words, corpus.words_t, k)
+        counts, idx = it.binary_knn(q, corpus, k)
         ref_counts = np.sum(
             (rows > 0) != np.asarray([q.get(i) for i in range(d)])[None, :], axis=1
         )
@@ -27,7 +31,7 @@ class TestBinaryKnn:
         np.testing.assert_array_equal(np.asarray(counts), ref_counts[want])
 
     def test_public_api_small_and_large_agree(self, rng):
-        rows = rng.standard_normal((config.MIN_ROWS_PALLAS + 64, 64)).astype(np.float32)
+        rows = rng.standard_normal((LARGE + 64, 64)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows, 0.0)
         q = it.encode_binary(rows[3], 0.0)
         counts, idx = it.binary_knn(q, corpus, 5)
@@ -54,7 +58,7 @@ class TestTernaryKnn:
         rows = rng.standard_normal((n, d)).astype(np.float32)
         corpus = it.PackedTernaryBatch.encode(rows, 0.5)
         q = it.encode_ternary(rows[11], 0.5)
-        dots, idx = kpacked.fused_ternary_knn(q.pos, q.neg, corpus.pos_t, corpus.neg_t, k)
+        dots, idx = it.ternary_knn(q, corpus, k)
         tern = np.where(rows > 0.5, 1, np.where(rows < -0.5, -1, 0))
         qv = tern[11]
         ref_dots = tern @ qv
@@ -76,7 +80,7 @@ class TestU8Knn:
     def test_fused_u8_matches_oracle(self, rng, n, d, k):
         codes = rng.integers(0, 256, (n, d), dtype=np.uint8)
         qs = rng.standard_normal((3, d)).astype(np.float32)
-        mixed, idx = kknn.fused_knn_u8_batch(jnp.asarray(qs), jnp.asarray(codes), k)
+        mixed, idx = scan.knn(jnp.asarray(qs), jnp.asarray(codes), None, k, "dot")
         for j in range(3):
             ref = codes.astype(np.float64) @ qs[j].astype(np.float64)
             want = np.argsort(-ref, kind="stable")[:k]
@@ -84,7 +88,7 @@ class TestU8Knn:
             np.testing.assert_allclose(np.asarray(mixed)[j], ref[want], rtol=1e-4, atol=1e-2)
 
     def test_batch_knn_u8_dispatch_agrees(self, rng):
-        rows = rng.standard_normal((config.MIN_ROWS_PALLAS + 32, 48)).astype(np.float32)
+        rows = rng.standard_normal((LARGE + 32, 48)).astype(np.float32)
         params = it.QuantizationParams.fit(rows)
         batch = it.QuantizedU8Batch.quantize(rows, params)
         q = rng.standard_normal(48).astype(np.float32)
@@ -99,10 +103,12 @@ class TestU8Knn:
             assert a == pytest.approx(b, rel=1e-4, abs=1e-3)
 
     def test_u8_rejects_f32(self, rng):
-        with pytest.raises(ValueError):
-            kknn.fused_knn_u8_batch(
-                jnp.zeros((1, 8), jnp.float32), jnp.zeros((16, 8), jnp.float32), 2
-            )
+        # QuantizedU8Batch holds uint8 codes whatever it is given.
+        params = it.QuantizationParams.fit(rng.standard_normal((16, 8)).astype(np.float32))
+        batch = it.QuantizedU8Batch.quantize(
+            rng.standard_normal((16, 8)).astype(np.float32), params
+        )
+        assert batch.codes.dtype == jnp.uint8
 
 
 class TestBinaryKnnBatch:
@@ -110,11 +116,9 @@ class TestBinaryKnnBatch:
         rows = rng.standard_normal((3000, 128)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows, 0.0)
         qs = [it.encode_binary(rows[i] + 0.1, 0.0) for i in (3, 77, 500)]
-        counts, idx = kpacked.fused_binary_knn_batch(
-            jnp.stack([q.words for q in qs]), corpus.words_t, 5
-        )
+        counts, idx = binary_knn_batch(qs, corpus, 5)
         for j, q in enumerate(qs):
-            c1, i1 = kpacked.fused_binary_knn(q.words, corpus.words_t, 5)
+            c1, i1 = it.binary_knn(q, corpus, 5)
             np.testing.assert_array_equal(np.asarray(idx)[j], np.asarray(i1))
             np.testing.assert_array_equal(np.asarray(counts)[j], np.asarray(c1))
 
@@ -122,8 +126,6 @@ class TestBinaryKnnBatch:
         rows = rng.standard_normal((400, 64)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows, 0.0)
         queries = [it.encode_binary(rows[i], 0.0) for i in (1, 9)]
-        from innr_tpu.ops.binary import binary_knn_batch
-
         counts, idx = binary_knn_batch(queries, corpus, 3)
         assert idx.shape == (2, 3)
         assert idx[0, 0] == 1 and idx[1, 0] == 9
@@ -132,8 +134,6 @@ class TestBinaryKnnBatch:
     def test_word_count_mismatch(self, rng):
         rows = rng.standard_normal((100, 64)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows, 0.0)
-        from innr_tpu.ops.binary import binary_knn_batch
-
         with pytest.raises(it.ContractError):
             binary_knn_batch(np.zeros((2, 5), np.uint32), corpus, 3)
 
@@ -166,7 +166,7 @@ class TestPipelineBatch:
 
 class TestLargeKFallback:
     def test_k_over_128_uses_xla_path(self, rng):
-        n = config.MIN_ROWS_PALLAS + 64
+        n = LARGE + 64
         rows = rng.standard_normal((n, 16)).astype(np.float32)
         vb = it.VerticalBatch.from_rows(rows)
         q = rng.standard_normal(16).astype(np.float32)
@@ -178,7 +178,7 @@ class TestLargeKFallback:
         )
 
     def test_binary_knn_large_k(self, rng):
-        n = config.MIN_ROWS_PALLAS + 8
+        n = LARGE + 8
         rows = rng.standard_normal((n, 64)).astype(np.float32)
         corpus = it.PackedBinaryBatch.encode(rows, 0.0)
         q = it.encode_binary(rows[0], 0.0)
@@ -186,7 +186,7 @@ class TestLargeKFallback:
         assert len(idx) == 300 and idx[0] == 0
 
     def test_ternary_knn_large_k(self, rng):
-        n = config.MIN_ROWS_PALLAS + 8
+        n = LARGE + 8
         rows = rng.standard_normal((n, 64)).astype(np.float32)
         corpus = it.PackedTernaryBatch.encode(rows, 0.5)
         q = it.encode_ternary(rows[3], 0.5)
@@ -194,7 +194,7 @@ class TestLargeKFallback:
         assert len(idx) == 200 and idx[0] == 3
 
     def test_batch_knn_u8_large_k(self, rng):
-        n = config.MIN_ROWS_PALLAS + 8
+        n = LARGE + 8
         rows = rng.standard_normal((n, 32)).astype(np.float32)
         params = it.QuantizationParams.fit(rows)
         batch = it.QuantizedU8Batch.quantize(rows, params)
@@ -207,19 +207,13 @@ class TestTernaryKnnBatch:
         rows = rng.standard_normal((2500, 96)).astype(np.float32)
         corpus = it.PackedTernaryBatch.encode(rows, 0.5)
         qs = [it.encode_ternary(rows[i], 0.5) for i in (3, 77, 500)]
-        dots, idx = kpacked.fused_ternary_knn_batch(
-            jnp.stack([q.pos for q in qs]),
-            jnp.stack([q.neg for q in qs]),
-            corpus.pos_t, corpus.neg_t, 5,
-        )
+        dots, idx = ternary_knn_batch(qs, corpus, 5)
         for j, q in enumerate(qs):
-            d1, i1 = kpacked.fused_ternary_knn(q.pos, q.neg, corpus.pos_t, corpus.neg_t, 5)
+            d1, i1 = it.ternary_knn(q, corpus, 5)
             np.testing.assert_array_equal(np.asarray(idx)[j], np.asarray(i1))
             np.testing.assert_array_equal(np.asarray(dots)[j], np.asarray(d1))
 
     def test_public_batch_api_small(self, rng):
-        from innr_tpu.ops.ternary import ternary_knn_batch
-
         rows = rng.standard_normal((300, 64)).astype(np.float32)
         corpus = it.PackedTernaryBatch.encode(rows, 0.5)
         queries = [it.encode_ternary(rows[i], 0.5) for i in (4, 42)]
@@ -228,8 +222,6 @@ class TestTernaryKnnBatch:
         assert idx[0, 0] == 4 and idx[1, 0] == 42
 
     def test_plane_mismatch_raises(self, rng):
-        from innr_tpu.ops.ternary import ternary_knn_batch
-
         rows = rng.standard_normal((100, 64)).astype(np.float32)
         corpus = it.PackedTernaryBatch.encode(rows, 0.5)
         bad = it.PackedTernaryBatch.encode(rng.standard_normal((2, 96)).astype(np.float32), 0.5)

@@ -65,7 +65,7 @@ class TestCheck:
 
     def test_value_check_when_no_roofline(self):
         data = _data(cfg={"bench_key": "k", "value": 100.0})
-        # 2x tolerance on raw values (relay variance)
+        # 2x tolerance on raw values (run-to-run variance)
         assert PB.check(data, "# k: 85.0\n", 0.10) == 0
         assert PB.check(data, "# k: 75.0\n", 0.10) == 1
 
@@ -88,15 +88,26 @@ class TestCheck:
         assert PB.check(data, "# k: 0.96\n", 0.10) == 0
         assert PB.check(data, "# k: 0.90\n", 0.10) == 1
 
-    def test_real_medians_all_keys_present_in_synthetic_run(self):
+    def test_real_medians_all_keys_present_in_synthetic_run(
+            self, tmp_path, monkeypatch):
         # Every bench_key'd pin must fail against an EMPTY stderr — i.e.
         # the protected surface is non-empty and cannot silently shrink.
+        # A synthetic medians file stands in for the pinned one (none is
+        # pinned until the benchmark's first card run).
+        pins = {f"cfg{i}": {"bench_key": f"k{i}", "value": float(i + 1),
+                            "roofline_fraction": 0.5} for i in range(15)}
+        pins["ext"] = {"bench_key": None, "value": 7.0}
+        medians = tmp_path / "medians.json"
+        medians.write_text(json.dumps(_data(**pins)))
+        monkeypatch.setattr(PB, "MEDIANS", medians)
         data = PB.load()
         keyed = [
             n for n, c in data["configs"].items() if c.get("bench_key")
         ]
         assert len(keyed) >= 15
         assert PB.check(data, "", 0.10) == 1
+        full = "".join(f"# k{i}: {i + 1}.0 roofline=0.5\n" for i in range(15))
+        assert PB.check(data, full, 0.10) == 0
 
 
 class TestUpdate:

@@ -1,9 +1,10 @@
 """Tile-skip pruning: summaries, survivor planning, and the pruned scan.
 
-The pruned scan must be EXACT (bit-identical indices to the full fused
-scan — the centroid/radius bounds are sound), prune aggressively on
-tile-coherent corpora, and never prune tiles containing NaN rows.
-VERDICT r2 item 2 (the HBM-level early exit, SURVEY.md §7 hard part).
+The pruned scan must be EXACT (bit-identical indices to the full scan —
+the centroid/radius bounds are sound), prune aggressively on tile-coherent
+corpora, and never prune tiles containing NaN rows. The pruned scan is the
+Triton kernel with a survivor tile list; here it runs in Pallas interpret
+mode, which these tests ask for explicitly.
 """
 
 import numpy as np
@@ -12,9 +13,28 @@ import pytest
 import jax.numpy as jnp
 
 import innr_tpu as it
-from innr_tpu import prune
-from innr_tpu.kernels import knn as kknn
-from innr_tpu.kernels import pruned_knn as kpruned
+from innr_tpu import prune, scan
+from innr_tpu.kernels import triton_knn
+
+
+def _l2_aux(rows):
+    r = jnp.asarray(rows).astype(jnp.float32)
+    return jnp.sum(r * r, axis=1)
+
+
+def _pruned(qs, rows, summary, k, mode, aux=None):
+    """Tile-skipping Triton scan (interpret mode) over ``summary``."""
+    return scan.planned_knn(jnp.asarray(qs), jnp.asarray(rows), aux, summary,
+                            k, mode, route="triton", interpret=True)
+
+
+def _full(qs, rows, k, mode, aux=None, block_n=256):
+    """Full Triton scan (interpret mode), decoded like the pruned one."""
+    qs = jnp.asarray(qs)
+    keys, idx = triton_knn.knn_keys(qs, jnp.asarray(rows), aux, k, mode,
+                                    block_n=block_n, interpret=True)
+    n_rows = max(int(rows.shape[0]), scan.DIRECT_L2_MAX_ROWS)
+    return scan.decode_keys(keys, mode, qs, n_rows), idx
 
 
 def _clustered(rng, n=4096, d=32, n_centers=16, noise=0.05, sort=True):
@@ -92,15 +112,12 @@ class TestPlanSurvivors:
 class TestPrunedScanExactness:
     @pytest.mark.parametrize("mode", ["dot", "l2"])
     def test_matches_full_scan_bit_for_bit(self, rng, mode):
-        rows = _clustered(rng, n=3000, d=24)
+        rows = _clustered(rng, n=3000, d=32)
         s = prune.build_tile_summary(jnp.asarray(rows), 256)
-        qs = jnp.asarray(rng.standard_normal((5, 24)).astype(np.float32))
-        if mode == "dot":
-            pv, pi = kpruned.fused_knn_dot_pruned_batch(qs, jnp.asarray(rows), s, 7)
-            fv, fi = kknn.fused_knn_dot_batch(qs, jnp.asarray(rows), 7)
-        else:
-            pv, pi = kpruned.fused_knn_l2_pruned_batch(qs, jnp.asarray(rows), s, 7)
-            fv, fi = kknn.fused_knn_l2_batch(qs, jnp.asarray(rows), 7)
+        qs = jnp.asarray(rng.standard_normal((5, 32)).astype(np.float32))
+        aux = _l2_aux(rows) if mode == "l2" else None
+        pv, pi = _pruned(qs, rows, s, 7, mode, aux)
+        fv, fi = _full(qs, rows, 7, mode, aux)
         np.testing.assert_array_equal(np.asarray(pi), np.asarray(fi))
         np.testing.assert_array_equal(np.asarray(pv), np.asarray(fv))
 
@@ -112,8 +129,8 @@ class TestPrunedScanExactness:
         s = prune.build_tile_summary(jnp.asarray(rows), 256)
         q = rng.integers(-2, 3, 16).astype(np.float32)
         qs = jnp.asarray(q[None, :])
-        pv, pi = kpruned.fused_knn_dot_pruned_batch(qs, jnp.asarray(rows), s, 9)
-        fv, fi = kknn.fused_knn_dot_batch(qs, jnp.asarray(rows), 9)
+        pv, pi = _pruned(qs, rows, s, 9, "dot")
+        fv, fi = _full(qs, rows, 9, "dot")
         np.testing.assert_array_equal(np.asarray(pi), np.asarray(fi))
 
     def test_nan_rows_still_win(self, rng):
@@ -124,7 +141,7 @@ class TestPrunedScanExactness:
         rows[700] = np.nan
         s = prune.build_tile_summary(jnp.asarray(rows), 256)
         qs = jnp.asarray(rng.standard_normal((1, 16)).astype(np.float32))
-        pv, pi = kpruned.fused_knn_dot_pruned_batch(qs, jnp.asarray(rows), s, 3)
+        pv, pi = _pruned(qs, rows, s, 3, "dot")
         assert int(np.asarray(pi)[0, 0]) == 700
         assert np.isnan(np.asarray(pv)[0, 0])
 
@@ -218,18 +235,18 @@ class TestPublicPruneAPI:
 
 class TestCosinePrunedScan:
     """Cosine pruning: unit-row summaries make cosine a dot plan; results
-    must be bit-identical to the full fused cosine scan, including
-    zero-norm rows (score exactly 0.0)."""
+    must be bit-identical to the full cosine scan, including zero-norm
+    rows (score exactly 0.0)."""
 
     def test_matches_full_cosine_bit_for_bit(self, rng):
-        from innr_tpu.kernels.pruned_knn import fused_knn_cosine_pruned_batch
-
-        rows = _clustered(rng, n=3000, d=24)
+        rows = _clustered(rng, n=3000, d=32)
         rows[100] = 0.0  # zero-norm row: cosine contract 0.0
         s = prune.build_tile_summary(jnp.asarray(rows), 256, normalized=True)
-        qs = jnp.asarray(rng.standard_normal((4, 24)).astype(np.float32))
-        pv, pi = fused_knn_cosine_pruned_batch(qs, jnp.asarray(rows), s, 7)
-        fv, fi = kknn.fused_knn_cosine_batch(qs, jnp.asarray(rows), 7)
+        qs = scan.unit_queries(
+            jnp.asarray(rng.standard_normal((4, 32)).astype(np.float32)))
+        inv = scan.inv_norms(jnp.asarray(rows))
+        pv, pi = _pruned(qs, rows, s, 7, "cosine", inv)
+        fv, fi = _full(qs, rows, 7, "cosine", inv)
         np.testing.assert_array_equal(np.asarray(pi), np.asarray(fi))
         np.testing.assert_array_equal(np.asarray(pv), np.asarray(fv))
 
@@ -334,8 +351,8 @@ class TestRoundingSlack:
 
 
 class TestBf16PlanRounding:
-    """bf16 corpora: the scan kernels score bf16(q) . r (the same cast the
-    full fused scan makes, kernels/knn.py), a 2^-9 relative perturbation
+    """bf16 corpora: the scans score bf16(q) . r (the same cast the full
+    scan makes, innr_tpu/scan.py), a 2^-9 relative perturbation
     of the query that the f32 PRUNE_BOUND_EPS slack cannot absorb. The
     planner must bound the scores the kernel ACTUALLY computes — i.e.
     plan against the bf16-rounded query — or a true top-k row sitting in
@@ -371,8 +388,8 @@ class TestBf16PlanRounding:
         rows_bf = jnp.asarray(rows, jnp.bfloat16)
         qs = jnp.asarray(q)
         s = prune.build_tile_summary(rows_bf, 8)
-        pv, pi = kpruned.fused_knn_dot_pruned_batch(qs, rows_bf, s, 1)
-        fv, fi = kknn.fused_knn_dot_batch(qs, rows_bf, 1)
+        pv, pi = _pruned(qs, rows_bf, s, 1, "dot")
+        fv, fi = _full(qs, rows_bf, 1, "dot", block_n=8)
         assert np.asarray(pi).tolist() == np.asarray(fi).tolist()
         np.testing.assert_array_equal(np.asarray(pv), np.asarray(fv))
         # and the winner really is the group-B row the f32 plan would drop
@@ -385,8 +402,8 @@ class TestBf16PlanRounding:
         rows_bf = jnp.asarray(rows, jnp.bfloat16)
         s = prune.build_tile_summary(rows_bf, 256)
         qs = jnp.asarray(rows[:2] + 0.01)
-        pv, pi = kpruned.fused_knn_dot_pruned_batch(qs, rows_bf, s, 5)
-        fv, fi = kknn.fused_knn_dot_batch(qs, rows_bf, 5)
+        pv, pi = _pruned(qs, rows_bf, s, 5, "dot")
+        fv, fi = _full(qs, rows_bf, 5, "dot")
         np.testing.assert_array_equal(np.asarray(pi), np.asarray(fi))
         qs_plan = qs.astype(jnp.bfloat16).astype(jnp.float32)
         _, n_surv = prune.plan_survivors(
@@ -397,14 +414,14 @@ class TestBf16PlanRounding:
 
 class TestPruneTileKnob:
     """set_prune_tile_n: the layout knob for fine-grained-cluster corpora
-    (clusters smaller than the default VMEM-budget tile cannot prune —
-    the measured envelope boundary; a matching tile height restores the
-    win). Exactness must never depend on the tile height."""
+    (clusters smaller than the default tile cannot prune; a matching tile
+    height restores the win). Exactness must never depend on the tile
+    height."""
 
     def test_knob_restores_power_and_stays_exact(self, rng):
         import innr_tpu as it
 
-        nc, per, d = 64, 1024, 32
+        nc, per, d = 256, 256, 32
         centers = 5.0 * rng.standard_normal((nc, d)).astype(np.float32)
         assign = np.sort(rng.integers(0, nc, nc * per))
         rows = (
@@ -424,8 +441,8 @@ class TestPruneTileKnob:
         full = it.batch_knn_dot(q, vb, 10)
         r_default = it.batch_knn_dot(q, vb, 10, prune=True)
         p_default = power(vb.tile_summary())
-        assert vb.set_prune_tile_n(256) is vb       # chainable
-        assert vb.tile_summary().tile_n == 256
+        assert vb.set_prune_tile_n(128) is vb       # chainable
+        assert vb.tile_summary().tile_n == 128
         p_knob = power(vb.tile_summary())
         r_knob = it.batch_knn_dot(q, vb, 10, prune=True)
         # Sub-tile clusters: default prunes ~nothing, aligned tile wins.
@@ -438,26 +455,24 @@ class TestPruneTileKnob:
 
     def test_knob_validation_reset_and_cap(self, rng):
         import innr_tpu as it
-        from innr_tpu.kernels.pruned_knn import pruned_tile_n
 
         rows = rng.standard_normal((4096, 16)).astype(np.float32)
         vb = it.VerticalBatch.from_rows(rows)
-        default_tile = pruned_tile_n(4096, 16, vb.rows.dtype)
+        default_tile = prune.default_tile_n(4096, 16, vb.rows.dtype)
         with pytest.raises(it.ContractError):
             vb.set_prune_tile_n(0)
-        vb.set_prune_tile_n(300)                    # rounds up to a lane multiple
+        vb.set_prune_tile_n(300)                    # rounds up to 128 rows
         assert vb.tile_summary().tile_n == 384
-        vb.set_prune_tile_n(10**9)                  # capped at the VMEM budget
+        vb.set_prune_tile_n(10**9)                  # capped at the default
         assert vb.tile_summary().tile_n == default_tile
         vb.set_prune_tile_n(None)                   # reset to default
         assert vb.tile_summary().tile_n == default_tile
 
 
 class TestNearestCentroid:
-    """Differential tests for the fused nearest-centroid kernel
-    (kernels/assign.py) against a float64 NumPy oracle — the final
-    full-corpus pass of `_kmeans_assign` (round-5 frontier: the XLA
-    matmul+argmin materialized a (N, kc) HBM intermediate)."""
+    """Differential tests for the nearest-centroid pass
+    (prune.nearest_centroid) against a float64 NumPy oracle — the final
+    full-corpus pass of `_kmeans_assign`."""
 
     @staticmethod
     def _oracle(x, c):
@@ -469,10 +484,10 @@ class TestNearestCentroid:
     @pytest.mark.parametrize(
         "n,d,kc",
         [(1000, 16, 7), (513, 32, 256), (300, 8, 1), (129, 7, 2100),
-         (257, 160, 2304)],  # 2100/2304 exercise the multi-tile merge
+         (257, 160, 2304)],
     )
     def test_matches_oracle_on_separated_clusters(self, rng, n, d, kc):
-        from innr_tpu.kernels.assign import nearest_centroid
+        from innr_tpu.prune import nearest_centroid
 
         c = rng.standard_normal((kc, d)).astype(np.float32) * 3
         a = rng.integers(0, kc, n)
@@ -481,10 +496,9 @@ class TestNearestCentroid:
         np.testing.assert_array_equal(got, self._oracle(x, c))
 
     def test_all_negative_scores_padding_cannot_win(self):
-        # Every real centroid scores NEGATIVE (dot < 0, big norms); the
-        # zero-padded centroid rows score exactly 0.0 and would win the
-        # max if the kernel forgot to pin them to -inf by index.
-        from innr_tpu.kernels.assign import nearest_centroid
+        # Every real centroid scores NEGATIVE (dot < 0, big norms): the
+        # argmin must pick among real centroids only.
+        from innr_tpu.prune import nearest_centroid
 
         c = np.full((3, 4), 10.0, np.float32)
         c[1] = 20.0
@@ -494,9 +508,8 @@ class TestNearestCentroid:
 
     def test_exact_ties_pick_lowest_index(self, rng):
         # Duplicated centroid rows produce bit-identical scores; both
-        # the kernel (min-gidx within a tile, strict-greater across
-        # tiles) and np.argmin resolve to the FIRST index.
-        from innr_tpu.kernels.assign import nearest_centroid
+        # jnp.argmin and np.argmin resolve to the FIRST index.
+        from innr_tpu.prune import nearest_centroid
 
         base = rng.standard_normal((5, 16)).astype(np.float32)
         c = np.concatenate([base, base[::-1], base])  # every row 3x
@@ -507,7 +520,7 @@ class TestNearestCentroid:
         assert got.max() < 5  # always the first copy
 
     def test_nan_rows_assign_zero(self, rng):
-        from innr_tpu.kernels.assign import nearest_centroid
+        from innr_tpu.prune import nearest_centroid
 
         c = rng.standard_normal((4, 8)).astype(np.float32)
         x = rng.standard_normal((6, 8)).astype(np.float32)
@@ -518,7 +531,7 @@ class TestNearestCentroid:
         np.testing.assert_array_equal(got[keep], self._oracle(x, c)[keep])
 
     def test_bf16_rows_match_bf16_oracle(self, rng):
-        from innr_tpu.kernels.assign import nearest_centroid
+        from innr_tpu.prune import nearest_centroid
 
         c = (rng.standard_normal((9, 32)) * 3).astype(np.float32)
         a = rng.integers(0, 9, 200)
@@ -530,9 +543,8 @@ class TestNearestCentroid:
 
 
 class TestClusterReorder:
-    """All-device IVF layout pass (cluster_reorder) + auto tile suggestion:
-    the round-5 'make cluster_order economical and pruning self-routing'
-    work (VERDICT r4 item 2)."""
+    """All-device IVF layout pass (cluster_reorder) + auto tile
+    suggestion."""
 
     def test_matches_host_permutation_path(self, rng):
         rows = _clustered(rng, n=4096, d=32, sort=False)
@@ -548,45 +560,38 @@ class TestClusterReorder:
         np.testing.assert_array_equal(perm, np.asarray(host_perm))
 
     def test_suggest_tile_n(self):
-        from innr_tpu.kernels.pruned_knn import pruned_tile_n
-
-        # Half-cluster rule would give 256/512 here, but the ~1MB DMA
-        # floor (2048 rows at d=128 f32; envelope measured 0.84x
-        # amortized at tile 256 despite 64% elision) wins: sub-floor
-        # cluster granularity routes to the full scan instead of paying
-        # bandwidth-starved small DMAs (IVFIndex is the sub-tile answer).
-        assert prune.suggest_tile_n(np.full(100, 600), 60_000, 128) == 2048
-        assert prune.suggest_tile_n(np.full(100, 1200), 120_000, 128) == 2048
-        # ~8000-row clusters at d=128 -> half = 4000 -> 3968 (above the
-        # 2048-row floor, below the VMEM cap).
-        assert prune.suggest_tile_n(np.full(100, 8000), 800_000, 128) == 3968
-        # d=8 f32: 1MB floor = ceil(32768 rows) -> already the cap here.
-        assert prune.suggest_tile_n(np.full(10, 40), 400, 8) >= 2048
-        # bf16 halves the row bytes -> doubles the floor rows.
-        assert (
-            prune.suggest_tile_n(np.full(100, 600), 60_000, 128,
-                                 dtype=jnp.bfloat16)
-            >= 4096
-        )
-        cap = pruned_tile_n(1_000_000, 128, jnp.float32)
-        # No non-empty clusters -> the VMEM-budget default.
+        # Half the 25th-percentile cluster size, rounded down to 128 rows,
+        # floored at 256 rows, capped at the default tile height.
+        assert prune.suggest_tile_n(np.full(100, 600), 60_000, 128) == 256
+        assert prune.suggest_tile_n(np.full(100, 1200), 120_000, 128) == 512
+        assert prune.suggest_tile_n(np.full(100, 200), 60_000, 128) == 256
+        # ~8000-row clusters -> half = 4000 -> 3968, above the cap here.
+        cap = prune.default_tile_n(800_000, 128)
+        assert prune.suggest_tile_n(np.full(100, 8000), 800_000, 128) == cap
+        assert prune.suggest_tile_n(np.full(10, 40), 400, 8) == 256
+        cap = prune.default_tile_n(1_000_000, 128, jnp.float32)
+        # No non-empty clusters -> the default.
         assert (
             prune.suggest_tile_n(np.zeros(5, np.int64), 1_000_000, 128) == cap
         )
-        # Huge clusters -> capped at the VMEM-budget default.
+        # Huge clusters -> capped at the default.
         assert (
             prune.suggest_tile_n(np.full(3, 10**9), 1_000_000, 128) == cap
         )
+
+    def test_default_tile_n_is_kernel_block(self):
+        # One surviving tile is one Triton program: the default tile is
+        # the kernel's block height, a multiple of its sub-tile.
+        for n in (1, 5000, 60_000, 1_000_000, 20_000_000):
+            t = prune.default_tile_n(n, 128)
+            assert t == triton_knn.block_rows(n)
+            assert t % triton_knn.SUB_N == 0 and 1024 <= t <= 4096
 
     def test_batch_cluster_reorder_end_to_end(self, rng):
         """VerticalBatch.cluster_reorder: pruned kNN on the reordered batch
         maps back through perm to the direct answer, and the auto tile
         height re-enables pruning on sub-tile clusters without the manual
         knob."""
-        # ~6000 rows/cluster at d=128: half-cluster tile ~2944 sits above
-        # the ~1MB DMA floor (2048) and below the VMEM cap (~4736), so
-        # the automatic height actually adapts (sub-floor granularity
-        # now routes to the full scan instead — see test_suggest_tile_n).
         n, d, nc = 120_000, 128, 20
         centers = 6.0 * rng.standard_normal((nc, d)).astype(np.float32)
         assign = rng.integers(0, nc, n)
@@ -597,11 +602,10 @@ class TestClusterReorder:
         vb = it.VerticalBatch.from_rows(rows)
         nb, perm = vb.cluster_reorder(n_clusters=nc, n_iters=4)
         perm = np.asarray(perm)
-        # Auto tile height dropped below the VMEM default to match the
-        # measured cluster granularity.
-        from innr_tpu.kernels.pruned_knn import pruned_tile_n
-
-        assert nb.tile_summary().tile_n < pruned_tile_n(n, d, nb.rows.dtype)
+        # Auto tile height follows the measured cluster granularity,
+        # capped at the default.
+        assert nb.tile_summary().tile_n <= prune.default_tile_n(
+            n, d, nb.rows.dtype)
         qs = (centers[:4] + 0.01).astype(np.float32)
         full = it.batch_knn(qs, vb, 5)
         pruned = it.batch_knn(qs, nb, 5, prune=True)
@@ -634,10 +638,9 @@ class TestClusterReorder:
 
 
 class TestPruneRouter:
-    """Self-routing prune=True: lax.cond picks the full fused scan when the
-    plan elides too little (config.prune_route_min_elide) — results must be
-    bit-identical on both routes, and the route must actually be taken at
-    runtime (observed with a sentinel spy on the full-scan branch)."""
+    """prune=True takes the planned scan only on the Triton route; the XLA
+    route runs the full scan. Both must equal the plain scan, and the
+    planned kernel must really receive a plan that skips tiles."""
 
     def _mk(self, rng, n):
         rows = _clustered(rng, n=n, d=32, n_centers=16, sort=True)
@@ -646,16 +649,9 @@ class TestPruneRouter:
         return rows, vb, qs
 
     def test_full_route_exact(self, rng):
-        from innr_tpu import config
-
-        rows, vb, qs = self._mk(rng, 4104)  # unique shape: fresh trace
+        rows, vb, qs = self._mk(rng, 4104)
         want = it.batch_knn(qs, vb, 5)
-        old = config.prune_route_min_elide()
-        try:
-            config.set_prune_route_min_elide(1.0)  # always the full branch
-            got = it.batch_knn(qs, vb, 5, prune=True)
-        finally:
-            config.set_prune_route_min_elide(old)
+        got = it.batch_knn(qs, vb, 5, prune=True)  # XLA route on the CPU
         np.testing.assert_array_equal(
             np.asarray(got.indices), np.asarray(want.indices)
         )
@@ -664,37 +660,26 @@ class TestPruneRouter:
         )
 
     def test_route_taken_at_runtime(self, rng, monkeypatch):
-        """Sentinel spy: replace the full-scan branch with one returning
-        index 7 everywhere. A clustered corpus (high elision) must return
-        the REAL pruned answer (pruned branch ran); with the threshold at
-        1.0 the sentinel must surface (full branch ran). This observes the
-        runtime lax.cond decision, not just trace-time structure."""
-        from innr_tpu import config
-        from innr_tpu.kernels import knn as knn_mod
-        from innr_tpu.kernels.knn import _INT_MIN
+        """Spy on the kernel: the planned Triton scan must be handed a
+        survivor count below the tile count on a clustered corpus, and
+        must still return the plain scan's answer."""
+        rows, vb, qs = self._mk(rng, 4232)
+        want = it.batch_knn(qs, vb, 5)
+        seen = []
+        real = triton_knn.knn_keys
 
-        real = knn_mod._fused_knn_raw
+        def spy(*a, **kw):
+            seen.append((kw.get("n_surv"), kw.get("order")))
+            return real(*a, **kw)
 
-        def sentinel(qs_, rows_, aux_, k_, mode_, excl_=None):
-            keys, idx = real(qs_, rows_, aux_, k_, mode_, excl_)
-            return jnp.full_like(keys, _INT_MIN + 1), jnp.full_like(idx, 7)
-
-        rows, vb, qs = self._mk(rng, 4232)  # unique shape: fresh trace
-        # The oracle must be computed BEFORE the patch: the plain
-        # batch_knn path also flows through _fused_knn_raw.
-        want = it.batch_knn(qs, it.VerticalBatch.from_rows(rows), 5)
-
-        monkeypatch.setattr(knn_mod, "_fused_knn_raw", sentinel)
-
-        got = it.batch_knn(qs, vb, 5, prune=True)  # elides >10%: pruned
-        np.testing.assert_array_equal(
-            np.asarray(got.indices), np.asarray(want.indices)
-        )
-        old = config.prune_route_min_elide()
-        try:
-            config.set_prune_route_min_elide(1.0)
-            rows2, vb2, qs2 = self._mk(rng, 4360)  # fresh trace again
-            got2 = it.batch_knn(qs2, vb2, 5, prune=True)
-        finally:
-            config.set_prune_route_min_elide(old)
-        assert np.all(np.asarray(got2.indices) == 7)
+        monkeypatch.setattr(triton_knn, "knn_keys", spy)
+        s = vb.tile_summary()
+        got_v, got_i = _pruned(qs, rows, s, 5, "l2", vb.norms2())
+        assert len(seen) == 1
+        n_surv, order = seen[0]
+        assert order is not None
+        np.testing.assert_array_equal(np.asarray(got_i),
+                                      np.asarray(want.indices))
+        ns = int(prune.plan_survivors(
+            jnp.asarray(qs), s.centroids, s.radii, s.counts, 5, "l2")[1])
+        assert 0 < ns < s.n_tiles

@@ -111,7 +111,7 @@ class TestFastCosine:
 
 
 class TestInt8MXUDecomposition:
-    """batch_dot_u8_s8 (zero-point-shifted s8xs8 MXU) must equal the
+    """batch_dot_u8_s8 (zero-point-shifted s8xs8 matmul) must equal the
     int32-widen path EXACTLY for all u8 inputs (survey §2.4 experiment)."""
 
     def test_exact_equality_random(self, rng):

@@ -118,23 +118,23 @@ class TestSegmentedCorpus:
         s, i = sc.knn_dot(rows[0], 3)
         assert len(i) == 0
 
-    def test_fused_path_above_threshold(self, rng, monkeypatch):
+    def test_fused_path_above_threshold(self, rng, monkeypatch, force_triton):
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu.kernels import triton_knn as kknn
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         d = 16
         sc = it.SegmentedCorpus(d)
         rows = rng.standard_normal((200, d)).astype(np.float32)
         sc.add(rows)
         calls = []
-        real = kknn.fused_knn_keys_batch
+        real = kknn.knn_keys
 
         def spy(*a, **kw):
             calls.append(1)
             return real(*a, **kw)
 
-        monkeypatch.setattr(kknn, "fused_knn_keys_batch", spy)
+        monkeypatch.setattr(kknn, "knn_keys", spy)
         scores, ids = sc.knn_dot(rows[:2], 3)
         assert calls, "segment scan should ride the fused kernel"
         want_s, want_i = _oracle(rows[:2], rows, np.arange(200), 3, "dot")
@@ -197,15 +197,15 @@ class TestSegmentedCorpus:
         assert sc.num_segments <= 4 + 1
         assert sc.num_vectors == 60
 
-    def test_delete_heavy_workload_stays_fused_and_exact(self, rng, monkeypatch):
+    def test_delete_heavy_workload_stays_fused_and_exact(self, rng, monkeypatch, force_triton):
         """VERDICT r2 item 7 done-criterion: a delete-heavy workload
         (50% tombstones attempted, many segments) never leaves the fused
         path and always matches brute force."""
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu.kernels import triton_knn as kknn
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
-        d = 12
+        force_triton()
+        d = 16
         sc = it.SegmentedCorpus(d, max_segments=5)
         all_rows, killed = {}, set()
         for b in range(20):  # 20 segments added; auto-compaction tiers them
@@ -221,13 +221,13 @@ class TestSegmentedCorpus:
         assert sc.num_segments <= 6
         # every remaining segment rides the fused kernel
         unfused = []
-        real = kknn.fused_knn_keys_batch
+        real = kknn.knn_keys
 
         def spy(*a, **kw):
             unfused.append(0)
             return real(*a, **kw)
 
-        monkeypatch.setattr(kknn, "fused_knn_keys_batch", spy)
+        monkeypatch.setattr(kknn, "knn_keys", spy)
         qs = rng.standard_normal((3, d)).astype(np.float32)
         scores, ids = sc.knn_dot(qs, 7)
         assert len(unfused) == sc.num_segments

@@ -30,15 +30,15 @@ class TestShardedKnn:
         np.testing.assert_allclose(np.asarray(vals), want.scores, rtol=1e-5)
 
     def test_dot_large_k_stays_fused(self, rng, devices_ok):
-        """k + pad > 512 used to silently unfuse the per-shard scan
-        (VERDICT r2 item 3); the plan must now stay fused and the merged
-        result must still match the single-chip path exactly."""
+        """Large k + pad: each shard over-fetches by the pad count (clamped
+        to the shard height) and the merged result must still match the
+        single-device path exactly."""
         from innr_tpu.parallel.sharded import _plan_local_k
 
         rows = rng.standard_normal((17000, 24)).astype(np.float32)
         sc = ShardedCorpus(rows)
-        _, use_fused = _plan_local_k(sc, 600)
-        assert use_fused
+        pad = sc.n_pad - sc.n_true
+        assert _plan_local_k(sc, 600) == min(600 + pad, sc.shard_rows)
         q = rng.standard_normal(24).astype(np.float32)
         vals, idx = sc.knn_dot(q, 600)
         dots = rows.astype(np.float64) @ q.astype(np.float64)
@@ -117,7 +117,7 @@ class TestShardedFamilyRound2:
         np.testing.assert_array_equal(np.asarray(idx), want.indices)
         np.testing.assert_allclose(np.asarray(vals), want.scores, rtol=1e-4, atol=1e-5)
 
-    def test_fused_local_scan_matches_jnp_path(self, rng, devices_ok, monkeypatch):
+    def test_fused_local_scan_matches_jnp_path(self, rng, devices_ok, monkeypatch, force_triton):
         # Force the fused per-shard kernel (interpret mode on CPU) and
         # check bit-identical indices vs the jnp shard path.
         from innr_tpu import config
@@ -126,7 +126,7 @@ class TestShardedFamilyRound2:
         qs = rng.standard_normal((3, 32)).astype(np.float32)
         sc = ShardedCorpus(rows)
         vals_j, idx_j = sc.knn_dot(qs, 5)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         vals_f, idx_f = sc.knn_dot(qs, 5)
         np.testing.assert_array_equal(np.asarray(idx_f), np.asarray(idx_j))
         np.testing.assert_allclose(np.asarray(vals_f), np.asarray(vals_j), rtol=1e-5)
@@ -261,7 +261,7 @@ class TestShardedFamilyRound2:
         np.testing.assert_allclose(np.asarray(vals), want_v, rtol=1e-5, atol=1e-5)
 
     @pytest.mark.parametrize("kind", ["binary", "ternary", "u8", "matryoshka"])
-    def test_sharded_two_stage_fused_coarse(self, rng, devices_ok, monkeypatch, kind):
+    def test_sharded_two_stage_fused_coarse(self, rng, devices_ok, monkeypatch, kind, force_triton):
         from innr_tpu import config
         from innr_tpu.parallel import ShardedTwoStageIndex
 
@@ -269,7 +269,7 @@ class TestShardedFamilyRound2:
         qs = rows[:3] + 0.01 * rng.standard_normal((3, 64)).astype(np.float32)
         idx = ShardedTwoStageIndex(rows, kind, rerank_factor=4)
         want_v, want_i = idx.search_batch(qs, 3)
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         idx_f = ShardedTwoStageIndex(rows, kind, rerank_factor=4)
         got_v, got_i = idx_f.search_batch(qs, 3)
         # Both paths rerank exactly; the coarse shortlists may order ties
@@ -377,29 +377,19 @@ class TestShardedSlot:
         assert float(np.asarray(sims)[0]) == 1.0
         assert int(np.asarray(midx)[0]) == 5
 
-    def test_sharded_slot_fused_local_scan(self, rng, devices_ok, monkeypatch):
-        """Above the Pallas threshold the local scan must route through the
-        fused kernel (interpret mode on CPU) and still match exactly."""
-        from innr_tpu import config
-        from innr_tpu.kernels import slot_knn as kslot
+    def test_sharded_slot_fused_local_scan(self, rng, devices_ok):
+        """The per-shard compare-reduce must match the single-device scan
+        exactly, for several queries (integer keys merge exactly)."""
         from innr_tpu.parallel import ShardedSlotCorpus
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
         sketches = rng.integers(0, 4, (800, 32)).astype(np.uint32)
         sc = ShardedSlotCorpus(sketches)
-        calls = []
-        real = kslot.fused_slot_knn_batch
-
-        def spy(*a, **kw):
-            calls.append(1)
-            return real(*a, **kw)
-
-        monkeypatch.setattr(kslot, "fused_slot_knn_batch", spy)
-        counts, idx = sc.knn(sketches[77], 5)
-        assert calls, "fused local scan not exercised"
-        want_counts, want_idx = it.slot_knn_u32(sketches[77], sketches, 5)
-        np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_idx))
-        np.testing.assert_array_equal(np.asarray(counts), np.asarray(want_counts))
+        for qi in (0, 77, 799):
+            counts, idx = sc.knn(sketches[qi], 5)
+            want_counts, want_idx = it.slot_knn_u32(sketches[qi], sketches, 5)
+            np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_idx))
+            np.testing.assert_array_equal(np.asarray(counts),
+                                          np.asarray(want_counts))
 
     def test_sharded_slot_edges(self, rng, devices_ok):
         from innr_tpu.parallel import ShardedSlotCorpus
@@ -450,23 +440,23 @@ class TestShardedFiltered:
             want = it.batch_knn_filtered(qs[qi], vb, 5, mask)
             np.testing.assert_array_equal(np.asarray(idx)[qi], want.indices)
 
-    def test_fused_local_scan(self, rng, devices_ok, monkeypatch):
+    def test_fused_local_scan(self, rng, devices_ok, monkeypatch, force_triton):
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu.kernels import triton_knn as kknn
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         rows = rng.standard_normal((640, 16)).astype(np.float32)
         mask = rng.random(640) < 0.5
         q = rng.standard_normal(16).astype(np.float32)
         sc = ShardedCorpus(rows)
         calls = []
-        real = kknn.fused_knn_keys_batch
+        real = kknn.knn_keys
 
         def spy(*a, **kw):
             calls.append(a[4] if len(a) > 4 else kw.get("mode"))
             return real(*a, **kw)
 
-        monkeypatch.setattr(kknn, "fused_knn_keys_batch", spy)
+        monkeypatch.setattr(kknn, "knn_keys", spy)
         vals, idx = sc.knn_filtered(q, 5, mask)
         assert "l2m" in calls
         vb = it.VerticalBatch.from_rows(rows)
@@ -516,22 +506,22 @@ class TestQueryParallel:
         np.testing.assert_array_equal(np.asarray(idx), want.indices)
         np.testing.assert_allclose(np.asarray(vals), want.scores, rtol=1e-5, atol=1e-6)
 
-    def test_fused_local_scan(self, rng, devices_ok, monkeypatch):
+    def test_fused_local_scan(self, rng, devices_ok, monkeypatch, force_triton):
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu.kernels import triton_knn as kknn
         from innr_tpu.parallel import QueryParallelIndex
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         rows = rng.standard_normal((256, 16)).astype(np.float32)
         qs = rng.standard_normal((16, 16)).astype(np.float32)
         calls = []
-        real = kknn.fused_knn_keys_batch
+        real = kknn.knn_keys
 
         def spy(*a, **kw):
             calls.append(1)
             return real(*a, **kw)
 
-        monkeypatch.setattr(kknn, "fused_knn_keys_batch", spy)
+        monkeypatch.setattr(kknn, "knn_keys", spy)
         qp = QueryParallelIndex(rows)
         vals, idx = qp.knn_dot(qs, 3)
         assert calls, "fused arm not exercised"
@@ -641,22 +631,22 @@ class TestGridIndex:
             )
         np.testing.assert_array_equal(np.asarray(idx), want.indices)
 
-    def test_fused_local_scan_on_grid(self, rng, devices_ok, monkeypatch):
+    def test_fused_local_scan_on_grid(self, rng, devices_ok, monkeypatch, force_triton):
         from innr_tpu import config
-        from innr_tpu.kernels import knn as kknn
+        from innr_tpu.kernels import triton_knn as kknn
         from innr_tpu.parallel import GridIndex, grid_mesh
 
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 8)
+        force_triton()
         rows = rng.standard_normal((512, 16)).astype(np.float32)
         qs = rng.standard_normal((8, 16)).astype(np.float32)
         calls = []
-        real = kknn.fused_knn_keys_batch
+        real = kknn.knn_keys
 
         def spy(*a, **kw):
             calls.append(1)
             return real(*a, **kw)
 
-        monkeypatch.setattr(kknn, "fused_knn_keys_batch", spy)
+        monkeypatch.setattr(kknn, "knn_keys", spy)
         gi = GridIndex(rows, grid_mesh(4, 2))
         vals, idx = gi.knn_dot(qs, 3)
         assert calls, "fused arm not exercised on the grid"
@@ -1000,7 +990,7 @@ class TestHierarchicalMerge:
         assert np.all(np.isnan(np.asarray(vals)[:2]))
         assert np.all(np.isfinite(np.asarray(vals)[2:]))
 
-    def test_pod_16dev_4x4_dryrun(self):
+    def test_pod_16dev_4x4_dryrun(self, force_triton):
         # Pod-shaped (4 slices x 4 devices) factorization with planted
         # cross-slice ties + NaN rows and the trace-time DCN payload
         # assertion — runs in the dryrun's own 16-device CPU child
@@ -1040,12 +1030,11 @@ class TestShardedPruned:
         ).astype(np.float32)
 
     @pytest.fixture
-    def small_gate(self, monkeypatch):
-        # 8-device CPU mesh shards are small; lower the fused gate so the
-        # pruned branch actually engages (and verify it does).
-        from innr_tpu import config
-
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+    def small_gate(self, force_triton):
+        # Route the small 8-device CPU shards to the Triton kernel (in
+        # interpret mode) so the pruned branch actually engages (and
+        # verify it does).
+        force_triton()
 
     @pytest.mark.parametrize("mode", ["dot", "l2", "cosine"])
     def test_pruned_matches_flat(self, rng, devices_ok, small_gate,
@@ -1080,7 +1069,7 @@ class TestShardedPruned:
             want = np.argsort(-dots[i].astype(np.float32), kind="stable")[:5]
             np.testing.assert_array_equal(np.asarray(pi)[i], want)
 
-    def test_bf16_plans_with_rounded_query(self, devices_ok):
+    def test_bf16_plans_with_rounded_query(self, devices_ok, force_triton):
         # bf16 shards: the pruned scan scores bf16(q) . r, so the per-shard
         # planner must bound the ROUNDED query's scores — planning with the
         # f32 query prunes the tile holding the true winner (regression:
@@ -1110,19 +1099,20 @@ class TestShardedPruned:
         cent = jnp.asarray(np.stack([u, v, zero, zero]))
         rad = jnp.zeros(4, jnp.float32)
         cnt = jnp.full(4, 8, jnp.int32)
+        force_triton()
         pv, pi = sh._sharded_knn_pruned(
             jnp.asarray(q), jnp.asarray(rows, jnp.bfloat16), None,
-            cent, rad, cnt, 1, 1, "dot", 32, mesh, 8,
+            cent, rad, cnt, 1, 1, "dot", 32, mesh, 8, "triton", 16,
         )
         fv, fi = sh._sharded_knn(
             jnp.asarray(q), jnp.asarray(rows, jnp.bfloat16), None,
-            1, 1, "dot", 32, mesh, True,
+            1, 1, "dot", 32, mesh, "triton", 16,
         )
         np.testing.assert_array_equal(np.asarray(pi), np.asarray(fi))
         np.testing.assert_array_equal(np.asarray(pv), np.asarray(fv))
         assert 8 <= int(np.asarray(pi)[0, 0]) < 16  # a v-row wins in bf16
 
-    def test_summary_is_sharded_and_cached(self, rng, devices_ok):
+    def test_summary_is_sharded_and_cached(self, rng, devices_ok, force_triton):
         rows = self._clustered(rng)
         sc = ShardedCorpus(rows)
         cent, rad, cnt, tile_n = sc.tile_summary()
@@ -1137,10 +1127,8 @@ class TestShardedPruneTileKnob:
     tile height and results stay exact."""
 
     def test_knob_rebuilds_summaries_and_stays_exact(self, rng, devices_ok,
-                                                     monkeypatch):
-        from innr_tpu import config
-
-        monkeypatch.setattr(config, "MIN_ROWS_PALLAS", 64)
+                                                     force_triton):
+        force_triton()
         centers = 5.0 * rng.standard_normal((16, 16)).astype(np.float32)
         assign = np.sort(rng.integers(0, 16, 8192))
         rows = (
@@ -1150,7 +1138,7 @@ class TestShardedPruneTileKnob:
         sc = ShardedCorpus(rows)
         default_tile = sc.tile_summary()[3]
         assert sc.set_prune_tile_n(130) is sc         # chainable
-        assert sc.tile_summary()[3] == 256            # lane-rounded
+        assert sc.tile_summary()[3] == 256            # rounded to 128 rows
         q = rng.standard_normal(16).astype(np.float32)
         pv, pi = sc.knn_dot(q, 6, prune=True)
         dots = rows.astype(np.float64) @ q.astype(np.float64)

@@ -165,20 +165,18 @@ class TestSlotKnn:
         assert len(np.asarray(idx)) == 5
 
 class TestSketchCorpusFused:
-    """Fused streaming slot-kNN kernel vs the jnp compare-reduce oracle.
+    """SketchCorpus slot-kNN (the XLA compare-reduce) vs a host oracle.
 
     Integer counts get exact equality (fuzz/fuzz_targets/slot_diff.rs
     discipline); index order must match a stable argsort (ties break by
-    lower index, the kernel's insertion rule).
+    lower index).
     """
 
     @pytest.mark.parametrize("n,s,k", [(2500, 128, 5), (3000, 64, 10), (2177, 96, 3)])
     def test_fused_single_query_matches_bruteforce(self, rng, n, s, k):
-        from innr_tpu.kernels.slot_knn import fused_slot_knn
-
         corpus = rng.integers(0, 6, (n, s)).astype(np.uint32)
         q = corpus[17]
-        counts, idx = fused_slot_knn(jnp.asarray(q), jnp.asarray(corpus.T), k)
+        counts, idx = it.slot_knn_u32(q, it.SketchCorpus(corpus), k)
         ref = np.sum(corpus != q[None, :], axis=1)
         want = np.argsort(ref, kind="stable")[:k]
         np.testing.assert_array_equal(np.asarray(idx), want)
@@ -186,13 +184,11 @@ class TestSketchCorpusFused:
 
     @pytest.mark.parametrize("n_q,k", [(4, 5), (9, 129)])
     def test_fused_multi_query_matches_bruteforce(self, rng, n_q, k):
-        from innr_tpu.kernels.slot_knn import fused_slot_knn_batch
-
         n, s = 2600, 64
         corpus = rng.integers(0, 5, (n, s)).astype(np.uint32)
         qs = corpus[:n_q].copy()
         qs[1, :7] += 1  # one near-duplicate
-        counts, idx = fused_slot_knn_batch(jnp.asarray(qs), jnp.asarray(corpus.T), k)
+        counts, idx = it.slot_knn_u32_batch(qs, it.SketchCorpus(corpus), k)
         for qi in range(n_q):
             ref = np.sum(corpus != qs[qi][None, :], axis=1)
             want = np.argsort(ref, kind="stable")[:k]
@@ -200,34 +196,21 @@ class TestSketchCorpusFused:
             np.testing.assert_array_equal(np.asarray(counts)[qi], ref[want])
 
     def test_fused_ragged_tail_winner(self, rng):
-        """Winner planted past the last full tile boundary must be found."""
-        from innr_tpu.kernels.slot_knn import fused_slot_knn
-
+        """Winner planted in the last row must be found."""
         n, s = 2048 + 37, 128
         corpus = rng.integers(0, 1000, (n, s)).astype(np.uint32)
         q = rng.integers(0, 1000, s).astype(np.uint32)
         corpus[n - 1] = q  # in the ragged final block
-        counts, idx = fused_slot_knn(jnp.asarray(q), jnp.asarray(corpus.T), 3)
+        counts, idx = it.slot_knn_u32(q, it.SketchCorpus(corpus), 3)
         assert int(np.asarray(idx)[0]) == n - 1
         assert int(np.asarray(counts)[0]) == 0
 
-    def test_container_dispatches_fused_and_matches_jnp(self, rng, monkeypatch):
-        from innr_tpu.kernels import slot_knn as kslot
-
+    def test_container_dispatches_fused_and_matches_jnp(self, rng):
         n, s = 2200, 64
         corpus = rng.integers(0, 4, (n, s)).astype(np.uint32)
         qs = corpus[[3, 1000, 2100]]
-        calls = []
-        real = kslot.fused_slot_knn_batch
-
-        def spy(*a, **kw):
-            calls.append("fused")
-            return real(*a, **kw)
-
-        monkeypatch.setattr(kslot, "fused_slot_knn_batch", spy)
         container = it.SketchCorpus(corpus)
         counts_f, idx_f = it.slot_knn_u32_batch(qs, container, 4)
-        assert calls == ["fused"]
         counts_j, idx_j = it.slot_knn_u32_batch(qs, corpus, 4)  # raw array: jnp path
         np.testing.assert_array_equal(np.asarray(counts_f), np.asarray(counts_j))
         np.testing.assert_array_equal(np.asarray(idx_f), np.asarray(idx_j))
@@ -237,7 +220,7 @@ class TestSketchCorpusFused:
         corpus = rng.integers(0, 7, (n, s)).astype(np.uint32)
         container = it.SketchCorpus(corpus)
         assert container.num_sketches == n and container.num_slots == s
-        assert container.memory_bytes() == n * s * 8  # rows + cached transpose
+        assert container.memory_bytes() == n * s * 4  # u32 slots, no copy
         counts, idx = it.slot_knn_u32(corpus[42], container, 2)
         assert int(np.asarray(idx)[0]) == 42 and int(np.asarray(counts)[0]) == 0
         sims, midx = it.minhash_knn_batch(corpus[:3], container, 2)
@@ -247,16 +230,15 @@ class TestSketchCorpusFused:
 
     def test_forced_reference_skips_fused(self, rng, monkeypatch):
         from innr_tpu import config
-        from innr_tpu.kernels import slot_knn as kslot
+        from innr_tpu.kernels import triton_knn
 
         corpus = rng.integers(0, 4, (2100, 32)).astype(np.uint32)
         container = it.SketchCorpus(corpus)
 
         def boom(*a, **kw):
-            raise AssertionError("fused kernel must not run under force_reference")
+            raise AssertionError("no kernel may run under force_reference")
 
-        monkeypatch.setattr(kslot, "fused_slot_knn", boom)
-        monkeypatch.setattr(kslot, "fused_slot_knn_batch", boom)
+        monkeypatch.setattr(triton_knn, "knn_keys", boom)
         try:
             config.force_reference(True)
             counts, idx = it.slot_knn_u32(corpus[9], container, 3)
@@ -284,7 +266,7 @@ class TestU16SketchCorpus:
         corpus = rng.integers(0, 1 << 16, (2400, 64)).astype(np.uint16)
         container = it.SketchCorpus(corpus)
         assert container.dtype == jnp.uint16
-        assert container.memory_bytes() == 2400 * 64 * 2 * 2
+        assert container.memory_bytes() == 2400 * 64 * 2
         q = corpus[77]
         counts, idx = it.slot_knn_u16(q, container, 5)
         ref = np.sum(corpus != q[None, :], axis=1)
@@ -293,22 +275,12 @@ class TestU16SketchCorpus:
         np.testing.assert_array_equal(np.asarray(counts), ref[want])
         assert int(np.asarray(idx)[0]) == 77
 
-    def test_u16_batch_and_fused_dispatch(self, rng, monkeypatch):
-        from innr_tpu.kernels import slot_knn as kslot
-
+    def test_u16_batch_and_fused_dispatch(self, rng):
         corpus = rng.integers(0, 1 << 16, (2200, 32)).astype(np.uint16)
         container = it.SketchCorpus(corpus)
         qs = corpus[[3, 1000, 2100]]
-        calls = []
-        real = kslot.fused_slot_knn_batch
-
-        def spy(*a, **kw):
-            calls.append(1)
-            return real(*a, **kw)
-
-        monkeypatch.setattr(kslot, "fused_slot_knn_batch", spy)
         counts_f, idx_f = it.slot_knn_u16_batch(qs, container, 4)
-        assert calls, "fused u16 kernel not exercised"
+        assert container.sketches.dtype == jnp.uint16
         counts_j, idx_j = it.slot_knn_u16_batch(qs, corpus, 4)  # raw: jnp
         np.testing.assert_array_equal(np.asarray(counts_f), np.asarray(counts_j))
         np.testing.assert_array_equal(np.asarray(idx_f), np.asarray(idx_j))
